@@ -6,8 +6,10 @@
 Phases, each of which raises on failure (non-zero exit):
   1. device: the card's name and power limit, and whether nvcc, triton and
      PIL are present;
-  2. build: the hand-written CUDA kernel, built with nvcc from
-     toist_tpu_torch/csrc into build/kernels;
+  2. build: the hand-written CUDA kernels (flash-attention forward with
+     in-kernel dropout, its dK/dV and dQ backward, the LSA solver), one nvcc
+     per source, all started together, from toist_tpu_torch/csrc into
+     build/kernels;
   3. kernel vs plain: the flash-attention forward against its plain PyTorch
      version at the slice's shapes (encoder self-attention [8,S,256] and
      decoder cross-attention [8,100,256] over [8,S,256], 8 heads, S = 1114
@@ -21,7 +23,38 @@ Phases, each of which raises on failure (non-zero exit):
      1344x800 canvases; every forward must launch the kernel 12 times;
   5. slice kernel vs plain: the same weights in f32 (TF32 off) on one batch,
      once through the kernel and once through the plain attention;
-     pred_logits and pred_boxes must agree within 2e-3.
+     pred_logits and pred_boxes must agree within 2e-3;
+  6. attention backward and dropout vs plain: at the training shapes
+     (encoder [6,1156,256], decoder cross [6,100,256] over [6,1156,256], and
+     the 480x800 rung [6,439,256]) in f32 and bf16 with a fully masked row,
+     forward and dQ/dK/dV against autograd through the plain version given
+     the kernels' own dropout mask, at rate 0 and 0.1 (f32 within 5e-5 and
+     bf16 within 2e-2 of each tensor's max abs; the fully masked row's dQ
+     and dK exactly 0); the same seed reproduces bit for bit; the kept
+     share lies within 1e-3 of 1 - 26/256; CUDA-event times of each kernel
+     and of the plain version;
+  7. LSA vs plain: [36,25,100] (continuous, padded rows, ties, NaN/inf
+     rows) and [36,100,100] against the plain version (equal assignments)
+     and scipy (equal assignments on continuous costs, equal total cost on
+     ties); times of both;
+  8. training at full width: fixture data (toist_tpu.data.fixtures) through
+     BatchIterator on the batcher.train_buckets canvases, bf16 with f32
+     master weights, batch 6, dropout 0.1, one warm-up step and then an
+     epoch through train_one_epoch / make_train_step; every loss finite,
+     12 forward, 12 dK/dV, 12 dQ attention launches and 1 LSA launch per
+     step, trainable parameters changed, frozen ones not, the EMA moved;
+     step ms, img/s and peak memory;
+  9. one training step with the kernels vs one without, in f32, dropout 0.
+     The run without kernels uses the plain attention and takes the
+     criterion to the CPU (plain LSA). The LSA kernel and the plain solver
+     give equal assignments on the same costs; a problem that the two runs
+     match differently must be a near-tie (the two assignments' costs
+     within 1e-4: a random model's queries predict near-equal boxes); held
+     to one matching, the losses agree within 1e-4 relative and the
+     gradients within 2e-3 of each tensor's max abs, except the two whose
+     gradient is 0 by construction (RoBERTa's key biases and the first
+     decoder self-attention's in_proj_weight; rounding noise in both runs),
+     which stay below 1e-4 of their module's other parameter's gradient.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -29,10 +62,12 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -41,6 +76,11 @@ NUM_QUERIES = 100
 TOL = {"float32": (2e-5, 0.0), "bfloat16": (3e-2, 3e-2)}   # (atol, rtol)
 SLICE_TOL = 2e-3
 LAUNCHES_PER_FORWARD = 12   # 6 encoder self-attn + 6 decoder cross-attn
+TRAIN_B = 6                 # optim.train_batch_size
+GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}   # x max abs of the tensor
+DROP_RATE = 0.1
+LOSS_RTOL = 1e-4
+STEP_GRAD_TOL = 2e-3
 
 
 def log(*a):
@@ -93,12 +133,14 @@ def phase_device():
 
 
 def phase_build():
-    from toist_tpu_torch.ops import _build
-    from toist_tpu_torch.ops.flash_attention import KERNEL_SOURCE
+    from toist_tpu_torch.ops import _build, lsa
+    from toist_tpu_torch.ops.flash_attention import KERNEL_SOURCES
 
-    _build.load_library(KERNEL_SOURCE)
-    secs = _build.BUILD_SECONDS[KERNEL_SOURCE]
-    log(f"[build] {KERNEL_SOURCE}: {secs:.2f} s")
+    sources = KERNEL_SOURCES + (lsa.KERNEL_SOURCE,)
+    t0 = time.perf_counter()
+    _build.load_libraries(sources)
+    secs = {src: _build.BUILD_SECONDS[src] for src in sources}
+    log(f"[build] {json.dumps(secs)}, wall {time.perf_counter() - t0:.2f} s")
     return secs
 
 
@@ -312,6 +354,441 @@ def phase_slice_kernel_vs_plain(state_dict, batch):
     return errs
 
 
+def reset_counts():
+    from toist_tpu_torch.ops.flash_attention import flash_attention
+    from toist_tpu_torch.ops.lsa import solve_lsa_batch
+
+    for name in ("launches", "dkv_launches", "dq_launches",
+                 "dropout_launches"):
+        setattr(flash_attention, name, 0)
+    solve_lsa_batch.launches = 0
+
+
+def read_counts():
+    from toist_tpu_torch.ops.flash_attention import flash_attention
+    from toist_tpu_torch.ops.lsa import solve_lsa_batch
+
+    return {"fwd": flash_attention.launches,
+            "dkv": flash_attention.dkv_launches,
+            "dq": flash_attention.dq_launches,
+            "dropout": flash_attention.dropout_launches,
+            "lsa": solve_lsa_batch.launches}
+
+
+def _rel_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    scale = max(1.0, want.abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def phase_attention_backward():
+    """Kernels 1b, 2, 3 against autograd through the plain version."""
+    import torch
+
+    from toist_tpu_torch.ops import flash_attention as fa
+
+    s_832 = (832 // 32) * (1344 // 32) + 64
+    s_480 = (480 // 32) * (800 // 32) + 64
+    shapes = [("encoder_832x1344", s_832, s_832),
+              ("decoder_cross_832x1344", NUM_QUERIES, s_832),
+              ("encoder_480x800", s_480, s_480)]
+    g = torch.Generator().manual_seed(SEED + 1)
+    cases = []
+    for shape_name, Sq, S in shapes:
+        q32, k32, v32, w32 = (torch.randn((TRAIN_B, n, D), generator=g)
+                              for n in (Sq, S, S, Sq))
+        mask = torch.rand(TRAIN_B, S, generator=g) < 0.2
+        mask[TRAIN_B - 1] = True                 # one fully masked row
+        mask = mask.cuda()
+        mask_u8 = mask.view(torch.uint8)
+        w = w32.cuda()
+        seed = torch.tensor([SEED + 7], dtype=torch.int64, device="cuda")
+        for dt_name, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            q, k, v = (t.to("cuda", dt) for t in (q32, k32, v32))
+            for rate in (0.0, DROP_RATE):
+                dq_ = fa.drop_threshold(rate)
+                sd = seed if dq_ else None
+                keep = (fa.dropout_keep_mask(seed, TRAIN_B, H, Sq, S, rate)
+                        if dq_ else None)
+
+                def kernel(a, b, c):
+                    return fa.FlashAttention.apply(a, b, c, mask_u8, H, dq_,
+                                                   sd)[0]
+
+                def plain(a, b, c):
+                    return fa.attention_plain(a.float(), b.float(),
+                                              c.float(), mask, H, keep,
+                                              rate)[0]
+
+                got = _fwd_bwd(kernel, q, k, v, w)
+                again = _fwd_bwd(kernel, q, k, v, w)
+                torch.cuda.synchronize()
+                want = _fwd_bwd(plain, q, k, v, w)
+                errs = {n: _rel_err(a, b) for n, a, b in
+                        zip(("o", "dq", "dk", "dv"), got, want)}
+                case = {"shape": shape_name, "q": [TRAIN_B, Sq, D],
+                        "kv": [TRAIN_B, S, D], "dtype": dt_name,
+                        "rate": rate, "rel_err": errs,
+                        "tol": GRAD_TOL[dt_name],
+                        "max_abs_err": max((a.float() - b.float()).abs()
+                                           .max().item() for a, b in
+                                           zip(got, want))}
+                ok = (max(errs.values()) <= GRAD_TOL[dt_name]
+                      and all(torch.isfinite(t).all().item() for t in got)
+                      and (got[1][TRAIN_B - 1] == 0).all().item()
+                      and (got[2][TRAIN_B - 1] == 0).all().item()
+                      and all(torch.equal(a, b) for a, b in zip(got, again)))
+                if dq_:
+                    share = keep.float().mean().item()
+                    case["kept_share"] = share
+                    ok = ok and abs(share - (1 - dq_ / 256)) < 1e-3
+                if shape_name != "encoder_480x800":
+                    case.update(_attention_times(q, k, v, mask, mask_u8, w,
+                                                 dq_, sd, keep, rate))
+                log(f"[attn-bwd] {json.dumps(case)}")
+                if not ok:
+                    raise AssertionError(f"attention kernels disagree with "
+                                         f"plain: {case}")
+                cases.append(case)
+    return cases
+
+
+def _fwd_bwd(fn, q, k, v, w):
+    import torch
+
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fn(q, k, v)
+    grads = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+    return (o.detach(),) + grads
+
+
+def _attention_times(q, k, v, mask, mask_u8, w, drop_q, seed, keep, rate):
+    """CUDA-event ms of each kernel and of the plain version's forward and
+    backward (autograd, dQ + dK + dV together)."""
+    import torch
+
+    from toist_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa._launch_fwd(q, k, v, mask_u8, H, drop_q, seed)
+    do = w.to(q.dtype).contiguous()
+    dsum = fa.row_dsum(do, o, H)
+    args = (q, k, v, mask_u8, do, lse, dsum, H, drop_q, seed)
+    qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
+    op = fa.attention_plain(qp, kp, vp, mask, H, keep, rate)[0]
+
+    def plain_bwd():
+        torch.autograd.grad(op, (qp, kp, vp), do, retain_graph=True)
+
+    return {"fwd_ms": cuda_ms(lambda: fa._launch_fwd(q, k, v, mask_u8, H,
+                                                      drop_q, seed)),
+            "dkv_ms": cuda_ms(lambda: fa._launch_dkv(*args)),
+            "dq_ms": cuda_ms(lambda: fa._launch_dq(*args)),
+            "plain_fwd_ms": cuda_ms(lambda: fa.attention_plain(
+                q, k, v, mask, H, keep, rate)),
+            "plain_bwd_ms": cuda_ms(plain_bwd)}
+
+
+def phase_lsa():
+    """Kernel 4 against the plain version and scipy."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from toist_tpu_torch.ops.lsa import (solve_lsa_batch,
+                                         solve_lsa_batch_plain)
+
+    rng = np.random.default_rng(SEED)
+    L_B, T = 6 * TRAIN_B, 25
+    cont = rng.normal(size=(L_B, T, NUM_QUERIES)).astype(np.float32)
+    ties = np.round(rng.uniform(size=cont.shape) * 3).astype(np.float32)
+    bad = cont.copy()
+    bad[0, 3] = np.nan
+    bad[1] = np.inf
+    n_pad = rng.integers(0, T + 1, L_B).astype(np.int32)
+    cases = [("continuous", cont, np.full(L_B, T, np.int32)),
+             ("padded", cont, n_pad), ("ties", ties, n_pad),
+             ("non_finite", bad, np.full(L_B, T, np.int32)),
+             ("100x100", rng.normal(size=(L_B, 100, 100)).astype(np.float32),
+              rng.integers(60, 101, L_B).astype(np.int32))]
+    out = []
+    for name, cost, n in cases:
+        c_cpu, n_cpu = torch.from_numpy(cost), torch.from_numpy(n)
+        c_gpu, n_gpu = c_cpu.cuda(), n_cpu.cuda()
+        got = solve_lsa_batch(c_gpu, n_gpu).cpu().numpy()
+        want = solve_lsa_batch_plain(c_cpu, n_cpu).numpy()
+        mismatches = int((got != want).any(axis=1).sum())
+        scipy_bad = 0
+        for b in range(L_B):
+            rows, cols = linear_sum_assignment(
+                np.where(np.isfinite(cost[b, :n[b]]), cost[b, :n[b]], 1e30))
+            if name == "ties":
+                ours = cost[b, np.arange(n[b]), got[b, :n[b]]].sum()
+                scipy_bad += not np.isclose(ours, cost[b, rows, cols].sum(),
+                                            rtol=1e-6, atol=1e-5)
+            elif name != "non_finite":
+                scipy_bad += not np.array_equal(got[b, :n[b]], cols)
+            scipy_bad += not (got[b, n[b]:] == -1).all()
+        case = {"case": name, "shape": list(cost.shape),
+                "problems_differing_from_plain": mismatches,
+                "problems_differing_from_scipy": int(scipy_bad)}
+        if name in ("continuous", "100x100"):
+            case["ms"] = cuda_ms(lambda: solve_lsa_batch(c_gpu, n_gpu))
+            t0 = time.perf_counter()
+            for _ in range(5):
+                solve_lsa_batch_plain(c_gpu, n_gpu)
+            case["plain_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        log(f"[lsa] {json.dumps(case)}")
+        if mismatches or scipy_bad:
+            raise AssertionError(f"LSA kernel disagrees: {case}")
+        out.append(case)
+    return out
+
+
+def _fixture_config(root):
+    from toist_tpu.config import Config
+    from toist_tpu.data.fixtures import generate_fixture
+
+    generate_fixture(root, num_tasks=2, imgs_per_split=30, seed=SEED)
+    return Config.from_sources(None, {"data": {
+        "coco_path": root, "refexp_ann_path": os.path.join(root,
+                                                           "annotations"),
+        "tasks": [1, 2], "num_workers": 4}})
+
+
+def phase_train(smi, state_dict, root):
+    """The training slice at full width through train_one_epoch."""
+    import torch
+
+    from toist_tpu.data.batcher import BatchIterator, BucketSpec, \
+        train_buckets
+    from toist_tpu.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.train.criterion import build_weight_dict
+    from toist_tpu_torch.train.engine import train_one_epoch
+    from toist_tpu_torch.train.state import init_train_state
+    from toist_tpu_torch.train.step import make_train_step
+
+    cfg = _fixture_config(root)
+    m, d = cfg.model, cfg.data
+    tokenizer = build_tokenizer(cfg)
+    datasets = [build_task_dataset(d, t, "train", tokenizer)
+                for t in d.tasks]
+    spec = BucketSpec(buckets=train_buckets(d.max_size, d.train_scales),
+                      max_text_len=d.max_text_len, max_boxes=d.max_boxes,
+                      num_logit_cols=d.num_logit_cols)
+    it = BatchIterator(datasets, spec, batch_size=TRAIN_B, seed=cfg.run.seed,
+                       num_workers=d.num_workers)
+    model = TOIST.from_state_dict(state_dict, m, device="cuda")
+    state = init_train_state(model, cfg, steps_per_epoch=len(it),
+                             total_steps=len(it) * cfg.optim.epochs)
+    step = make_train_step(cfg, build_weight_dict(cfg.loss, False,
+                                                  m.dec_layers))
+    log(f"[train] {len(datasets[0]) + len(datasets[1])} fixture images, "
+        f"{len(it)} batches of {TRAIN_B}, dropout {m.dropout}/"
+        f"{m.resizer_dropout}, {m.compute_dtype} with f32 masters")
+
+    state, sc = step(state, next(it.epoch(1, num_workers=1)))  # warm-up
+    if not bool(sc["loss_is_finite"]):
+        raise AssertionError("warm-up loss not finite")
+    torch.cuda.synchronize()
+    masters0 = [mm.detach().clone() for _, mm in state.masters]
+    frozen = [(n, p.detach().clone()) for n, p in model.named_parameters()
+              if not p.requires_grad]
+    ema0 = [e.clone() for e in state.ema.values()]
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+
+    def counted(state, batch):
+        before = read_counts()
+        t0 = time.perf_counter()
+        state, scalars = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = read_counts()
+        steps.append({
+            "canvas": list(batch["images"].shape[1:3]),
+            "images": int(batch["sample_valid"].sum()), "ms": dt * 1e3,
+            "launches": {k: after[k] - before[k] for k in after},
+            "scalars": {k: float(v) for k, v in scalars.items()}})
+        return state, scalars
+
+    reset_counts()
+    state, summary = train_one_epoch(counted, state, it, epoch=0,
+                                     print_freq=1)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for st in steps:
+        log(f"[train] step {json.dumps(st)}")
+    canvases = {tuple(st["canvas"]) for st in steps}
+    want = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
+            "dq": LAUNCHES_PER_FORWARD, "dropout": 3 * LAUNCHES_PER_FORWARD,
+            "lsa": 1}
+    bad = [st for st in steps if st["launches"] != want
+           or not all(math.isfinite(v) for v in st["scalars"].values())]
+    if len(steps) < 5 or len(canvases) < 2 or bad:
+        raise AssertionError(f"training run: {len(steps)} steps on "
+                             f"{len(canvases)} canvases, bad steps {bad}")
+    changed = sum(not torch.equal(a, mm) for a, (_, mm) in
+                  zip(masters0, state.masters))
+    frozen_moved = [n for n, p in frozen
+                    if not torch.equal(p, dict(model.named_parameters())[n])]
+    ema_moved = sum(not torch.equal(a, e) for a, e in
+                    zip(ema0, state.ema.values()))
+    n_train = len(state.masters)
+    log(f"[train] parameters: {changed}/{n_train} trainable changed, "
+        f"{len(frozen) - len(frozen_moved)}/{len(frozen)} frozen unchanged, "
+        f"EMA moved on {ema_moved}/{n_train}")
+    if changed != n_train or frozen_moved or ema_moved != n_train:
+        raise AssertionError(f"update check failed: frozen moved "
+                             f"{frozen_moved[:5]}")
+    for hw in sorted(canvases):
+        sel = [st for st in steps if tuple(st["canvas"]) == hw]
+        ms = sorted(round(st["ms"], 2) for st in sel)
+        n_img = sum(st["images"] for st in sel)
+        log(f"[train] canvas {hw[0]}x{hw[1]}: step ms {ms} -> "
+            f"{n_img / sum(st['ms'] for st in sel) * 1e3:.2f} img/s | {smi}")
+    total_img = sum(st["images"] for st in steps)
+    total_s = sum(st["ms"] for st in steps) / 1e3
+    log(f"[train] {len(steps)} steps, {total_img} images in {total_s:.3f} s:"
+        f" {total_img / total_s:.2f} img/s, peak memory {peak:.2f} GiB, "
+        f"launches {json.dumps(launches)}, epoch summary "
+        f"{json.dumps(summary)} | {smi}")
+    first_batch = next(it.epoch(0, num_workers=1))
+    return {"steps": steps, "launches": launches, "peak_gib": peak,
+            "img_s": total_img / total_s}, first_batch
+
+
+def phase_train_kernel_vs_plain(state_dict, batch):
+    """One f32 training step's matching, losses and gradients with the
+    kernels and without them."""
+    import torch
+
+    from toist_tpu.config import Config
+    from toist_tpu_torch.models.layers import set_fused_attention
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.ops.matching import hungarian_match_levels, \
+        match_costs
+    from toist_tpu_torch.train import criterion as crit
+    from toist_tpu_torch.train.optim import freeze_parameters, label_params
+    from toist_tpu_torch.train.step import TRAIN_KEYS, batch_to_device
+
+    cfg = Config.from_sources(None, {"model": {
+        "compute_dtype": "float32", "dropout": 0.0, "resizer_dropout": 0.0}})
+    lc = cfg.loss
+    wd = crit.build_weight_dict(lc, False, cfg.model.dec_layers)
+    model = TOIST.from_state_dict(state_dict, cfg.model, device="cuda")
+    freeze_parameters(model, label_params(model))
+    model.train()
+    x = batch_to_device(batch, "cuda", TRAIN_KEYS)
+    x_cpu = {k: v.cpu() for k, v in x.items()}
+    args = [x[k] for k in ("images", "image_mask", "text_ids", "text_mask")]
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    bv = x["box_valid"] & x["sample_valid"][:, None]
+
+    def levels(out):
+        return (torch.cat([out["aux_pred_logits"], out["pred_logits"][None]]),
+                torch.cat([out["aux_pred_boxes"], out["pred_boxes"][None]]))
+
+    def match(out, dev):
+        lg, bx = levels({k: v.detach().to(dev) for k, v in out.items()})
+        return hungarian_match_levels(lg, bx, x["boxes"].to(dev),
+                                      x["positive_map"].to(dev),
+                                      bv.to(dev), lc.set_cost_class,
+                                      lc.set_cost_bbox, lc.set_cost_giou)
+
+    def step(out, tgt, matching=None):
+        losses = crit.set_criterion(out, tgt, lc, matching)
+        total = crit.total_loss(losses, wd)
+        total.backward()
+        grads = {n: p.grad.detach().clone() for n, p in params
+                 if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        values = {k: float(v.detach()) for k, v in losses.items()
+                  if not k.startswith("_")}
+        values["loss"] = float(total.detach())
+        return values, grads
+
+    # With the kernels: attention kernels and the LSA kernel on the card.
+    reset_counts()
+    out_k, _ = model(*args)
+    t2q_k = match(out_k, "cuda")
+    lk, gk = step(out_k, x, t2q_k)
+    torch.cuda.synchronize()
+    with_kernels = read_counts()
+    # The same costs through the plain solver: assignments must be equal.
+    solver_equal = torch.equal(t2q_k.cpu(), match(out_k, "cpu"))
+    # Without: plain attention, the criterion and its plain LSA on the CPU.
+    set_fused_attention(model, False)
+    reset_counts()
+    out_p, _ = model(*args)
+    out_p = {k: v.cpu() for k, v in out_p.items()}
+    t2q_p = match(out_p, "cpu")
+    # Problems whose two runs matched differently must be near-ties: both
+    # assignments cost the same within 1e-4 on the kernel run's costs.
+    lg, bxs = levels({k: v.detach() for k, v in out_k.items()})
+    L = lg.shape[0]
+    cost = match_costs(lg.flatten(0, 1), bxs.flatten(0, 1),
+                       x["boxes"].repeat(L, 1, 1),
+                       x["positive_map"].repeat(L, 1, 1),
+                       lc.set_cost_class, lc.set_cost_bbox,
+                       lc.set_cost_giou).cpu()
+    a_k, a_p = t2q_k.cpu().flatten(0, 1), t2q_p.flatten(0, 1)
+    differ = (a_k != a_p).any(-1).nonzero().flatten().tolist()
+    gaps = []
+    for i in differ:
+        v = a_k[i] >= 0
+        ck = cost[i, a_k[i][v].long(), v.nonzero().flatten()].sum().item()
+        cp = cost[i, a_p[i][v].long(), v.nonzero().flatten()].sum().item()
+        gaps.append(abs(ck - cp) / max(1.0, abs(ck)))
+    with torch.no_grad():
+        own = float(crit.total_loss(crit.set_criterion(out_p, x_cpu, lc), wd))
+    lp, gp = step(out_p, x_cpu, t2q_k.cpu())
+    without = read_counts()
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-6) for k in lk)
+    # Two gradients are 0 by construction, so both runs compute rounding
+    # noise there: a separate key bias (RoBERTa's) adds one constant to a
+    # whole softmax row, and the first decoder layer's self-attention sees
+    # tgt = 0, so every value is b_v and its output is b_v whatever the
+    # weights. They are held to 1e-4 of the gradient of their module's other
+    # parameter (weight <-> bias) in both runs instead of to their own.
+    first_sa = "transformer.decoder.layers.0.self_attn.in_proj_weight"
+    zero_grad = [n for n in gp if n.endswith(".key.bias") or n == first_sa]
+    partner = {n: (n[:-len("weight")] + "bias" if n.endswith("weight")
+                   else n[:-len("bias")] + "weight") for n in zero_grad}
+    noise = max((max(g[n].abs().max().item() for g in (gk, gp))
+                 / gp[partner[n]].abs().max().item()
+                 for n in zero_grad), default=0.0)
+    grad_errs = sorted(((gk[n] - gp[n].to(gk[n].device)).abs().max().item()
+                        / max(gp[n].abs().max().item(), 1e-12), n)
+                       for n in gp if n not in zero_grad)
+    grad_err = grad_errs[-1][0]
+    res = {"solver_equal_on_same_costs": solver_equal,
+           "problems": int(a_k.shape[0]),
+           "problems_matched_differently_across_runs": len(differ),
+           "their_max_rel_cost_gap": max(gaps, default=0.0),
+           "total_loss": {"kernels": lk["loss"], "plain": lp["loss"],
+                          "plain_own_matching": own},
+           "loss_max_rel_err": loss_err, "grad_max_rel_err": grad_err,
+           "worst_grads": grad_errs[-3:], "grads_compared": len(grad_errs),
+           "zero_by_construction": len(zero_grad),
+           "their_grad_over_partner_grad": noise,
+           "launches_with": with_kernels, "launches_without": without}
+    log(f"[train-f32] kernels vs plain {json.dumps(res)} (tolerances: "
+        f"losses {LOSS_RTOL}, gradients {STEP_GRAD_TOL}, zero by "
+        f"construction 1e-4, cost gap 1e-4)")
+    want = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
+            "dq": LAUNCHES_PER_FORWARD, "dropout": 0, "lsa": 1}
+    if (not solver_equal or max(gaps, default=0.0) > 1e-4
+            or loss_err > LOSS_RTOL or grad_err > STEP_GRAD_TOL
+            or noise > 1e-4
+            or set(gk) != set(gp) or with_kernels != want
+            or any(without.values())):
+        raise AssertionError(f"training step kernels vs plain: {res}")
+    return res
+
+
 def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.getcwd())
@@ -327,21 +804,70 @@ def main() -> int:
     cases = phase_kernel_vs_plain()
     state_dict, batch, launches = phase_slice(smi, has_pil)
     phase_slice_kernel_vs_plain(state_dict, batch)
+    attn = phase_attention_backward()
+    lsa_cases = phase_lsa()
+    with tempfile.TemporaryDirectory() as root:
+        train, train_batch = phase_train(smi, state_dict, root)
+        torch.cuda.empty_cache()
+        phase_train_kernel_vs_plain(state_dict, train_batch)
 
     main_case = next(c for c in cases if c["shape"] == "encoder"
                      and c["dtype"] == "bfloat16" and c["mask"] == "mask")
+    enc = {c["rate"]: c for c in attn if c["shape"] == "encoder_832x1344"
+           and c["dtype"] == "bfloat16"}
+    lsa_main = next(c for c in lsa_cases if c["case"] == "continuous")
+    tl = train["launches"]
     record = {"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "toist_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "toist_tpu/ops/flash_attention.py:124",
         "launches": launches,
+        "train_launches": tl["fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "build_s": build_s,
         "cases": cases,
-    }]}
+    }, {
+        "name": "attn_dropout",
+        "route": "cuda",
+        "source": "toist_tpu_torch/csrc/attn_dropout.cuh",
+        "replaces": "toist_tpu/ops/flash_attention.py:102",
+        "launches": tl["dropout"],
+        "max_abs_err": max(c["max_abs_err"] for c in attn if c["rate"]),
+        "ms": enc[DROP_RATE]["fwd_ms"],
+        "plain_ms": enc[DROP_RATE]["plain_fwd_ms"],
+    }, {
+        "name": "flash_attn_bwd_dkv",
+        "route": "cuda",
+        "source": "toist_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "toist_tpu/ops/flash_attention.py:147",
+        "launches": tl["dkv"],
+        "max_abs_err": max(c["max_abs_err"] for c in attn),
+        "ms": enc[0.0]["dkv_ms"],
+        "plain_ms": enc[0.0]["plain_bwd_ms"],
+        "cases": attn,
+    }, {
+        "name": "flash_attn_bwd_dq",
+        "route": "cuda",
+        "source": "toist_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "toist_tpu/ops/flash_attention.py:193",
+        "launches": tl["dq"],
+        "max_abs_err": max(c["max_abs_err"] for c in attn),
+        "ms": enc[0.0]["dq_ms"],
+        "plain_ms": enc[0.0]["plain_bwd_ms"],
+    }, {
+        "name": "lsa",
+        "route": "cuda",
+        "source": "toist_tpu_torch/csrc/lsa.cu",
+        "replaces": "toist_tpu/ops/lsa_pallas.py:35",
+        "launches": tl["lsa"],
+        "max_abs_err": 0,
+        "ms": lsa_main["ms"],
+        "plain_ms": lsa_main["plain_ms"],
+        "cases": lsa_cases,
+    }], "train": {k: train[k] for k in ("launches", "peak_gib", "img_s")}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,13 +160,165 @@ def test_wrapper_rejects_bad_inputs():
                         None, H)
     with pytest.raises(ValueError):
         flash_attention(q, q, q, torch.zeros(B, 10), H)   # mask not bool
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):
         flash_attention(q, q, q, None, H, dropout_rate=0.1)
 
 
 def test_train_mode_dropout_raises():
+    """Training-mode dropout needs the step's generator."""
     port, _, x, mem, mask = _shared_mha(10, 300)
     port.train()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):
         port(torch.from_numpy(x), torch.from_numpy(mem),
              torch.from_numpy(mem))
+
+
+# --- dropout and gradients (training) ---------------------------------------
+# Dropout bits cannot match across frameworks (jax.random vs torch.Generator),
+# so _dropout_u8 is held by its properties, as test_dropout_semantics does
+# for the kernel: determinism per seed, keep share 1 - q/256 (within 5
+# binomial standard deviations), unbiasedness, the 8-bit clamp at q = 255.
+
+@pytest.mark.parametrize("rate,q", [(0.1, 26), (0.5, 128), (0.999, 255)])
+def test_dropout_u8_properties(rate, q):
+    from toist_tpu_torch.models.layers import dropout_u8
+    from toist_tpu_torch.ops.flash_attention import drop_scale, drop_threshold
+
+    assert drop_threshold(rate) == q
+    x = torch.full((400, 500), 2.0)
+    a = dropout_u8(x, rate, torch.Generator().manual_seed(1))
+    b = dropout_u8(x, rate, torch.Generator().manual_seed(1))
+    c = dropout_u8(x, rate, torch.Generator().manual_seed(2))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    kept = a != 0
+    assert set(a.unique().tolist()) <= {
+        0.0, float(torch.tensor(2.0) * drop_scale(q))}
+    p = 1 - q / 256
+    sd = (p * (1 - p) / x.numel()) ** 0.5
+    assert abs(kept.float().mean().item() - p) < 5 * sd
+    # E[dropout(x)] = x: the rescale folds in the quantized keep probability.
+    assert abs(a.mean().item() - 2.0) < 5 * 2.0 * drop_scale(q) * sd
+    assert dropout_u8(x, 0.0, None) is x
+
+
+def test_attention_plain_explicit_keep_mask():
+    from toist_tpu_torch.ops.flash_attention import drop_scale
+
+    q, k, v, rng = _qkv(11, 37, 70)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    mask = torch.from_numpy(rng.random((B, 70)) < 0.3)
+    base, lse = attention_plain(qt, kt, vt, mask, H)
+    ones = torch.ones(B, H, 37, 70, dtype=torch.bool)
+    out, lse1 = attention_plain(qt, kt, vt, mask, H, ones, 0.1)
+    torch.testing.assert_close(out, base * drop_scale(26), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(lse, lse1)        # dropout leaves the LSE alone
+    keep = torch.from_numpy(rng.random((B, H, 37, 70)) < 0.7)
+    out, _ = attention_plain(qt, kt, vt, mask, H, keep, 0.1)
+    hd = D // H
+    qh = qt.reshape(B, 37, H, hd).transpose(1, 2)
+    kh = kt.reshape(B, 70, H, hd).transpose(1, 2)
+    vh = vt.reshape(B, 70, H, hd).transpose(1, 2)
+    s = (qh @ kh.transpose(-1, -2) / hd ** 0.5).masked_fill(
+        mask[:, None, None, :], -1e9)
+    p = torch.softmax(s, -1) * keep * drop_scale(26)
+    want = (p @ vh).transpose(1, 2).reshape(B, 37, D)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_attention_dropout_draws_from_the_generator():
+    q, k, v, _ = _qkv(12, 300, 300)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    runs = [flash_attention(*args, None, H, 0.1,
+                            torch.Generator().manual_seed(s))[0]
+            for s in (3, 3, 4)]
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+
+
+def _grads_port(fn, q, k, v, w):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (fn(*ts) * torch.from_numpy(w)).sum().backward()
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("sq,s", [(300, 300), (100, 300)])
+def test_attention_gradients_match_jax(sq, s):
+    """Autograd through the port's attention against jax.grad of the JAX
+    Pallas kernel (interpret mode) and of the unfused JAX math, atol 5e-6
+    (tests/test_flash_attention.py test_gradient_parity). Batch element 1
+    has every key masked. There the JAX kernel deviates: its additive bias
+    lets dQ/dK flow through the masked keys, and its saved LSE (-1e9*log2 e
+    + log2 S, which rounds to -1e9*log2 e in f32) makes it recompute P = 1
+    instead of 1/S, so its dV is S times the unfused value. The port
+    follows the unfused semantics (masked_fill): dQ = dK = 0 there and dV
+    as the unfused math gives it."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((3, sq, D)).astype(np.float32)
+    k, v = (rng.standard_normal((3, s, D)).astype(np.float32)
+            for _ in range(2))
+    w = rng.standard_normal((3, sq, D)).astype(np.float32)
+    mask = rng.random((3, s)) < 0.2
+    mask[1] = True
+    mt = torch.from_numpy(mask)
+    got = _grads_port(lambda a, b, c: flash_attention(a, b, c, mt, H)[0],
+                      q, k, v, w)
+
+    def jgrads(fn):
+        g = jax.grad(lambda *a: jnp.sum(fn(*a) * w), argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        return [np.asarray(x) for x in g]
+
+    jm = jnp.asarray(mask)
+    kernel = jgrads(lambda a, b, c: fused_attention(a, b, c, jm, H,
+                                                    interpret=True))
+    unfused = jgrads(lambda a, b, c: _unfused_jax(a, b, c, jm))
+    for g, kg, ug in zip(got, kernel, unfused):
+        np.testing.assert_allclose(g[[0, 2]], kg[[0, 2]], atol=5e-6)
+        np.testing.assert_allclose(g, ug, atol=5e-6)
+    assert (got[0][1] == 0).all() and (got[1][1] == 0).all()
+    assert np.abs(kernel[0][1]).max() > 1e-3          # the JAX deviation
+
+
+def _unfused_jax(q, k, v, mask):
+    b, sq, _ = q.shape
+    s = k.shape[1]
+    hd = D // H
+    qh = q.reshape(b, sq, H, hd).transpose(0, 2, 1, 3)
+    kh = k.reshape(b, s, H, hd).transpose(0, 2, 1, 3)
+    vh = v.reshape(b, s, H, hd).transpose(0, 2, 1, 3)
+    logits = jnp.einsum("bhqd,bhsd->bhqs", qh, kh) / jnp.sqrt(jnp.float32(hd))
+    logits = jnp.where(mask[:, None, None, :], -1e9, logits)
+    out = jnp.einsum("bhqs,bhsd->bhqd", jax.nn.softmax(logits, -1), vh)
+    return out.transpose(0, 2, 1, 3).reshape(b, sq, D)
+
+
+@pytest.mark.parametrize("s", [300, 100])
+def test_module_gradients_match_jax(s):
+    """MultiheadAttention's gradients (inputs and packed weights) against
+    jax.grad of the JAX module, unfused (the semantics oracle), with a
+    fully masked batch element; atol 2e-5 as the module forward test."""
+    port, params, x, mem, mask = _shared_mha(13, s)
+    mask[1] = True
+    w = np.random.default_rng(14).standard_normal((B, 100, D)) \
+        .astype(np.float32)
+    jm = JaxMHA(D, H, 0.1, jnp.float32, "off")
+
+    def jloss(p, a, m):
+        return jnp.sum(jm.apply(p, a, m, m, key_padding_mask=mask) * w)
+
+    jgp, jga, jgm = jax.grad(jloss, argnums=(0, 1, 2))(params, x, mem)
+    xt = torch.from_numpy(x).requires_grad_()
+    mt = torch.from_numpy(mem).requires_grad_()
+    (port(xt, mt, mt, torch.from_numpy(mask)) * torch.from_numpy(w)) \
+        .sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jga), atol=2e-5)
+    np.testing.assert_allclose(mt.grad.numpy(), np.asarray(jgm), atol=2e-5)
+    p = jgp["params"]
+    w_in = np.concatenate([np.asarray(p[n]["kernel"]).T
+                           for n in ("q_proj", "k_proj", "v_proj")])
+    np.testing.assert_allclose(port.in_proj_weight.grad.numpy(), w_in,
+                               atol=2e-5)
+    np.testing.assert_allclose(port.out_proj.weight.grad.numpy(),
+                               np.asarray(p["out_proj"]["kernel"]).T,
+                               atol=2e-5)

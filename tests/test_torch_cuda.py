@@ -1,16 +1,27 @@
-"""The CUDA flash-attention forward on the card, against its plain version.
+"""The CUDA kernels on the card, against their plain versions.
 
 Marked ``cuda``: these tests need an NVIDIA GPU and nvcc, and skip
 elsewhere. On the card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-Tolerances: f32 with TF32 off 2e-5 (only the order of the sums differs),
-bf16 3e-2 (as tests/test_flash_attention.py).
+Tolerances: forward f32 with TF32 off 2e-5 (only the order of the sums
+differs), bf16 3e-2 (as tests/test_flash_attention.py). Gradients: f32 within
+5e-5 of each tensor's max abs value (sums over up to 300 rows in another
+order); bf16 kernels against the plain version in f32 on the same bf16
+inputs, within 2e-2 of the max (the kernels compute in f32 and round only
+their outputs). LSA: exact assignments on continuous costs and ties (the
+kernel and the plain version run the same algorithm in the same f32 order).
 """
+import numpy as np
 import pytest
 import torch
+from scipy.optimize import linear_sum_assignment
 
 from toist_tpu_torch.models.layers import MultiheadAttention
-from toist_tpu_torch.ops.flash_attention import (attention_plain,
+from toist_tpu_torch.ops.flash_attention import (FlashAttention,
+                                                 attention_plain,
+                                                 drop_threshold,
+                                                 dropout_keep_mask,
                                                  flash_attention)
+from toist_tpu_torch.ops.lsa import solve_lsa_batch, solve_lsa_batch_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -72,5 +83,121 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                         k, v, mask, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):
         flash_attention(q, k, v, mask, 8, dropout_rate=0.1)
+
+
+def _grads(fn, q, k, v, w):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fn(q, k, v)
+    dq, dk, dv = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+    return o.detach(), dq, dk, dv
+
+
+def _close(got, want, rel):
+    scale = max(1.0, want.abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * scale, (err, rel * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,s", [(300, 300), (100, 300), (37, 70)])
+@pytest.mark.parametrize("heads,d", [(8, 256), (4, 64)])
+@pytest.mark.parametrize("mask_kind", ["random", "full", "none"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_kernels_with_gradients_match_plain(cuda, dtype, sq, s, heads, d,
+                                            mask_kind, rate):
+    """Forward and dQ/dK/dV of the kernels against autograd through the plain
+    version given the kernels' own dropout mask; "random" masks hold a fully
+    masked row (batch element 1), whose dQ and dK must be 0."""
+    q, k, v, mask = _inputs(sq, s, d, dtype, mask_kind, seed=3)
+    if mask_kind == "random":
+        mask[1] = True
+    w = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4))
+    seed = torch.tensor([1234567], dtype=torch.int64, device=cuda)
+    dq_ = drop_threshold(rate)
+    keep = (dropout_keep_mask(seed, 2, heads, sq, s, rate) if dq_ else None)
+    mask_u8 = None if mask is None else mask.view(torch.uint8)
+    counts = (flash_attention.launches, flash_attention.dkv_launches,
+              flash_attention.dq_launches)
+    got = _grads(lambda a, b, c: FlashAttention.apply(
+        a, b, c, mask_u8, heads, dq_, seed if dq_ else None)[0], q, k, v, w)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.dkv_launches,
+            flash_attention.dq_launches) == tuple(c + 1 for c in counts)
+    want = _grads(lambda a, b, c: attention_plain(
+        a.float(), b.float(), c.float(), mask, heads, keep, rate)[0],
+        q, k, v, w)
+    rel = 5e-5 if dtype == torch.float32 else 2e-2
+    for g, r in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        _close(g, r, rel)
+    if mask_kind != "none":
+        full = mask.all(dim=1)
+        assert (got[1][full] == 0).all() and (got[2][full] == 0).all()
+
+
+def test_dropout_bits_reproduce_and_keep_rate(cuda):
+    seed = torch.tensor([99], dtype=torch.int64, device=cuda)
+    a = dropout_keep_mask(seed, 6, 8, 1156, 1156, 0.1)
+    b = dropout_keep_mask(seed, 6, 8, 1156, 1156, 0.1)
+    c = dropout_keep_mask(seed + 1, 6, 8, 1156, 1156, 0.1)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    keep = a.float().mean().item()
+    assert abs(keep - (1 - 26 / 256)) < 1e-3, keep
+    # Rows and columns are not correlated: per-row shares stay near the mean.
+    assert a.float().mean(-1).std().item() < 0.02
+    q, k, v, mask = _inputs(300, 300, 256, torch.float32, "random")
+    o1, _ = FlashAttention.apply(q, k, v, mask.view(torch.uint8), 8, 26, seed)
+    o2, _ = FlashAttention.apply(q, k, v, mask.view(torch.uint8), 8, 26, seed)
+    assert torch.equal(o1, o2)
+
+
+def test_module_dropout_draws_from_the_generator(cuda):
+    mha = MultiheadAttention(256, 8, dropout=0.1).to(cuda).train()
+    x = torch.randn(2, 100, 256, device=cuda)
+    mem = torch.randn(2, 300, 256, device=cuda)
+    outs = []
+    for s in (1, 1, 2):
+        g = torch.Generator(cuda).manual_seed(s)
+        outs.append(mha(x, mem, mem, generator=g))
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+
+
+def _lsa_cases():
+    rng = np.random.default_rng(0)
+    cont = rng.normal(size=(36, 25, 100)).astype(np.float32)
+    ties = np.round(rng.uniform(size=(36, 25, 100)) * 3).astype(np.float32)
+    nan = cont.copy()
+    nan[0, 3] = np.nan
+    nan[1] = np.inf
+    big = rng.normal(size=(36, 100, 100)).astype(np.float32)
+    n25 = rng.integers(0, 26, 36).astype(np.int32)
+    return [("continuous", cont, np.full(36, 25, np.int32)),
+            ("padded", cont, n25), ("ties", ties, n25),
+            ("non_finite", nan, np.full(36, 25, np.int32)),
+            ("100x100", big, rng.integers(60, 101, 36).astype(np.int32))]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_lsa_kernel_matches_plain(cuda, case):
+    name, cost, n = _lsa_cases()[case]
+    before = solve_lsa_batch.launches
+    got = solve_lsa_batch(torch.from_numpy(cost).to(cuda),
+                          torch.from_numpy(n).to(cuda))
+    torch.cuda.synchronize()
+    assert solve_lsa_batch.launches == before + 1
+    want = solve_lsa_batch_plain(torch.from_numpy(cost), torch.from_numpy(n))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                  err_msg=name)
+    if name in ("continuous", "padded", "100x100"):
+        for b in range(cost.shape[0]):
+            rows, cols = linear_sum_assignment(cost[b, :n[b]])
+            np.testing.assert_array_equal(got[b, :n[b]].cpu().numpy(), cols)
+
+
+def test_lsa_wrapper_raises(cuda):
+    with pytest.raises(ValueError, match="R <= C"):
+        solve_lsa_batch(torch.zeros(2, 5, 4, device=cuda),
+                        torch.ones(2, dtype=torch.int32, device=cuda))

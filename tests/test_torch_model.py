@@ -24,6 +24,7 @@ from toist_tpu_torch.models.layers import FUSED_MIN_KV
 from toist_tpu_torch.models.postprocess import \
     postprocess_boxes as p_postprocess
 from toist_tpu_torch.models.toist import TOIST
+from toist_tpu_torch.train.criterion import build_weight_dict
 from toist_tpu_torch.train.step import make_eval_step
 from toist_tpu_torch.utils.convert import jax_params_to_state_dict
 
@@ -158,14 +159,25 @@ def test_modified_memory_seam(tiny_pair):
 
 def test_eval_step(tiny_pair):
     port, _, _, batch = tiny_pair
-    with pytest.raises(NotImplementedError, match="criterion"):
-        make_eval_step(port, Config())
+    wd = build_weight_dict(Config().loss, False, TINY.dec_layers)
     cfg = Config.from_sources(None, {"run": {"compute_eval_losses": False}})
-    res = make_eval_step(port, cfg)(batch)
+    res = make_eval_step(port, cfg, wd)(batch)
     assert res["scalars"] == {}
     assert res["post"]["scores"].shape == (B, 20)
     assert res["post"]["boxes"].shape == (B, 20, 4)
     assert torch.isfinite(res["post"]["boxes"]).all()
+    # compute_eval_losses (the default) runs the criterion on the targets
+    targets = {"boxes": np.tile(np.float32([0.5, 0.5, 0.2, 0.3]), (B, 2, 1)),
+               "box_valid": np.array([[True, True], [True, False]]),
+               "positive_map": np.zeros((B, 2, 256), np.float32),
+               "sample_valid": np.ones((B,), bool)}
+    targets["positive_map"][:, :, 1:3] = 0.5
+    full = make_eval_step(port, Config(), wd)(dict(batch, **targets))
+    assert {"loss", "loss_ce", "loss_bbox", "loss_giou",
+            "loss_contrastive_align"} <= set(full["scalars"])
+    assert all(torch.isfinite(v) for v in full["scalars"].values())
+    for k in ("scores", "boxes"):
+        assert torch.equal(full["post"][k], res["post"][k])
 
 
 def test_train_mode_with_dropout_raises():
@@ -177,5 +189,5 @@ def test_train_mode_with_dropout_raises():
     x = torch.zeros(1, 64, 64, 3, dtype=torch.uint8)
     m = torch.zeros(1, 64, 64, dtype=torch.bool)
     ids = torch.full((1, 4), 5, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout"):   # no generator given
         model(x, m, ids, torch.zeros(1, 4, dtype=torch.bool))

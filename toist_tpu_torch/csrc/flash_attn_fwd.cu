@@ -1,8 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a), no dropout.
+// Flash-attention forward for Hopper (sm_90a), with in-kernel dropout.
 //
 // Replaces the TPU kernel `_fwd_kernel` (toist_tpu/ops/flash_attention.py,
-// launched by `_forward`). It computes, per (batch, head) and query row,
-//     O = softmax(Q K^T / sqrt(hd) with masked logits replaced by -1e9) V
+// launched by `_forward`) and its dropout (`_drop_tile` / `_drop_row`). It
+// computes, per (batch, head) and query row,
+//     P = softmax(Q K^T / sqrt(hd) with masked logits replaced by -1e9)
+//     O = (P o M) V,   M = keep / (1 - q/256) (all ones when q = 0)
 // and the row's log-sum-exp, for the joint encoder's self-attention
 // (Sq = S = 1156 at the 832x1344 eval canvas) and the decoder's image
 // cross-attention (Sq = 100, S = 1156), d_model 256 split into 8 heads of 32.
@@ -28,81 +30,30 @@
 // row whose keys are all masked softmaxes uniformly over its S real keys,
 // as the unfused path in toist_tpu/models/layers.py does.
 //
+// Dropout (q = drop_q > 0): the mask multiplies the unnormalised
+// probabilities after the row sum l has taken them in, as the TPU kernel
+// does, so the LSE is that of the undropped softmax and the backward kernels
+// recompute P from it. The keep bits come from attn_dropout.cuh, keyed on
+// (*seed, bh, row, column); q = 0 skips them and is the inference path.
+//
 // Tiling: one CTA of 256 threads per (64-query tile, batch*head). Thread
 // (ty, tx) = (tid / 16, tid % 16) owns query rows 4*ty .. 4*ty+3 of the
 // tile, score columns tx + 16*j of each 64-key tile, and output columns
 // tx*(HD/16) .. of the head. The 16 threads that share a row sit in one
 // half-warp, so row max and row sum are half-warp shuffles.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_dropout.cuh"
+#include "flash_attn_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int THREADS = 256;
-constexpr float NEG_INF = -1e9f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <typename T> struct Vec8;   // 8 elements <-> 8 floats, 16-byte aligned
-
-template <> struct Vec8<float> {
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    float4 a = *reinterpret_cast<const float4*>(p);
-    float4 b = *reinterpret_cast<const float4*>(p + 4);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-  }
-};
-
-template <> struct Vec8<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// Copy rows [row0, row0 + 64) of one head into smem[64][LD] as f32; rows at
-// or past n_rows are zero-filled.
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void load_tile(float (*smem)[LD], const T* base,
-                                          int row0, int n_rows, int row_stride) {
-  constexpr int CHUNKS = BQ * HD / 8;
-  for (int c = threadIdx.x; c < CHUNKS; c += THREADS) {
-    const int r = c / (HD / 8);
-    const int col = (c % (HD / 8)) * 8;
-    float v[8];
-    if (row0 + r < n_rows) {
-      Vec8<T>::load(base + (size_t)(row0 + r) * row_stride + col, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) smem[r][col + i] = v[i];
-  }
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int S, float scale_log2) {
+                 int H, int Sq, int S, float scale_log2, int drop_q,
+                 float drop_scale, const uint64_t* __restrict__ seed) {
   constexpr int LD = HD + 4;      // padded rows: 16-byte aligned, conflict-free
   constexpr int OC = HD / 16;     // output columns per thread
   __shared__ __align__(16) float Qs[BQ][LD];
@@ -127,6 +78,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, HD, LD>(Qs, qb, q0, Sq, D);
 
+  uint64_t row_key[4] = {0, 0, 0, 0};
+  if (drop_q > 0) {
+    const uint64_t sd = *seed;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      row_key[i] = attn_drop_row_key(sd, bh, q0 + 4 * ty + i);
+  }
+
   float m[4], l[4], acc[4][OC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -140,10 +99,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // the previous tile's Ks/Vs/Ps/Bias are consumed
     load_tile<T, HD, LD>(Ks, kb, k0, S, D);
     load_tile<T, HD, HD>(Vs, vb, k0, S, D);
-    if (tid < BK) {
-      const int key = k0 + tid;
-      Bias[tid] = key >= S ? 2.f : (mb && mb[key] ? 1.f : 0.f);
-    }
+    if (tid < BK) Bias[tid] = key_flag(mb, k0 + tid, S);
     __syncthreads();
 
     // Scores for rows 4*ty+i, keys tx+16*j of this tile.
@@ -189,8 +145,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
+        float p = exp2f(s[i][j] - m_new);
         rs += p;
+        if (drop_q > 0)
+          p = attn_drop_byte(row_key[i], k0 + tx + 16 * j) >= (uint32_t)drop_q
+                  ? p * drop_scale : 0.f;
         Ps[4 * ty + i][tx + 16 * j] = p;
       }
 #pragma unroll
@@ -241,31 +200,66 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* mask, void* o, float* lse, int B, int H,
-                   int Sq, int S, cudaStream_t stream) {
+                   int Sq, int S, int drop_q, const uint64_t* seed,
+                   cudaStream_t stream) {
   const float scale_log2 = LOG2E / sqrtf((float)HD);
+  const float drop_scale = (float)(1.0 / (1.0 - drop_q / 256.0));
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, HD><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H, Sq, S,
-      scale_log2);
+      scale_log2, drop_q, drop_scale, seed);
   return cudaGetLastError();
+}
+
+// keep[bh, row, col] = 1 where the kernels keep the element, else 0.
+__global__ void dropout_mask_kernel(const uint64_t* __restrict__ seed,
+                                    uint8_t* __restrict__ keep, int Sq, int S,
+                                    int drop_q) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y;
+  const int bh = blockIdx.z;
+  if (col >= S) return;
+  const uint64_t rk = attn_drop_row_key(*seed, bh, row);
+  keep[((size_t)bh * Sq + row) * S + col] =
+      attn_drop_byte(rk, col) >= (uint32_t)drop_q ? 1 : 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; drop_q in [0, 255] (0 = no dropout; seed
+// is then not read). Returns a cudaError_t (0 = launched).
 extern "C" int toist_flash_attn_fwd(const void* q, const void* k,
                                     const void* v, const void* mask, void* o,
                                     void* lse, int B, int H, int Sq, int S,
-                                    int hd, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || S <= 0 || B * H > 65535)
+                                    int hd, int dtype, int drop_q,
+                                    const void* seed, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || S <= 0 || B * H > 65535 || drop_q < 0 ||
+      drop_q > 255 || (drop_q > 0 && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* l = static_cast<float*>(lse);
+  const uint64_t* sd = static_cast<const uint64_t*>(seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 32) return launch<float, 32>(q, k, v, m, o, l, B, H, Sq, S, s);
-  if (dtype == 0 && hd == 16) return launch<float, 16>(q, k, v, m, o, l, B, H, Sq, S, s);
-  if (dtype == 1 && hd == 32) return launch<__nv_bfloat16, 32>(q, k, v, m, o, l, B, H, Sq, S, s);
-  if (dtype == 1 && hd == 16) return launch<__nv_bfloat16, 16>(q, k, v, m, o, l, B, H, Sq, S, s);
+  if (dtype == 0 && hd == 32) return launch<float, 32>(q, k, v, m, o, l, B, H, Sq, S, drop_q, sd, s);
+  if (dtype == 0 && hd == 16) return launch<float, 16>(q, k, v, m, o, l, B, H, Sq, S, drop_q, sd, s);
+  if (dtype == 1 && hd == 32) return launch<__nv_bfloat16, 32>(q, k, v, m, o, l, B, H, Sq, S, drop_q, sd, s);
+  if (dtype == 1 && hd == 16) return launch<__nv_bfloat16, 16>(q, k, v, m, o, l, B, H, Sq, S, drop_q, sd, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The dropout keep mask [BH, Sq, S] u8 that the attention kernels apply for
+// this seed and q (for tests and chip_smoke.py, which hand it to the plain
+// version). Returns a cudaError_t.
+extern "C" int toist_attn_dropout_mask(const void* seed, void* keep, int BH,
+                                       int Sq, int S, int drop_q,
+                                       void* stream) {
+  if (BH <= 0 || BH > 65535 || Sq <= 0 || Sq > 65535 || S <= 0 ||
+      drop_q <= 0 || drop_q > 255 || seed == nullptr)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((S + 255) / 256, Sq, BH);
+  dropout_mask_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(seed), static_cast<uint8_t*>(keep), Sq, S,
+      drop_q);
+  return (int)cudaGetLastError();
 }

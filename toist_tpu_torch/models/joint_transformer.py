@@ -4,7 +4,9 @@ Counterpart of ``toist_tpu/models/joint_transformer.py``, with the reference
 names (``layers.{i}.self_attn``, ``cross_attn_image``, ``linear1``,
 ``linear2``, ``norm1..4``, ``decoder.norm``). Post-norm layers; the position
 embedding is added to queries and keys only; the decoder returns every
-layer's output through the shared final norm.
+layer's output through the shared final norm. In training mode the
+attention probabilities, the FFN hidden layer and every residual branch are
+dropped (``dropout_u8``) with randomness from the ``generator`` argument.
 
 The LayerNorms here use eps 1e-6, flax's default, which the JAX package uses
 (the reference's torch layers use 1e-5); the port follows the JAX package.
@@ -14,8 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from toist_tpu_torch.models.layers import (MultiheadAttention,
-                                           check_no_dropout, ffn)
+from toist_tpu_torch.models.layers import (MultiheadAttention, active_rate,
+                                           dropout_u8, ffn)
 
 LN_EPS = 1e-6
 
@@ -31,11 +33,13 @@ class EncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, src, pos, key_padding_mask):
-        check_no_dropout(self, self.dropout)
+    def forward(self, src, pos, key_padding_mask, generator=None):
+        rate = active_rate(self, self.dropout, generator)
         q = k = src + pos
-        src = self.norm1(src + self.self_attn(q, k, src, key_padding_mask))
-        return self.norm2(src + ffn(src, self.linear1, self.linear2))
+        src2 = self.self_attn(q, k, src, key_padding_mask, generator)
+        src = self.norm1(src + dropout_u8(src2, rate, generator))
+        src2 = ffn(src, self.linear1, self.linear2, rate, generator)
+        return self.norm2(src + dropout_u8(src2, rate, generator))
 
 
 class DecoderLayer(nn.Module):
@@ -51,14 +55,17 @@ class DecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm4 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, tgt, memory, query_pos, pos, memory_key_padding_mask):
-        check_no_dropout(self, self.dropout)
+    def forward(self, tgt, memory, query_pos, pos, memory_key_padding_mask,
+                generator=None):
+        rate = active_rate(self, self.dropout, generator)
         q = k = tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(q, k, tgt))
+        tgt2 = self.self_attn(q, k, tgt, generator=generator)
+        tgt = self.norm1(tgt + dropout_u8(tgt2, rate, generator))
         tgt2 = self.cross_attn_image(tgt + query_pos, memory + pos, memory,
-                                     memory_key_padding_mask)
-        tgt = self.norm3(tgt + tgt2)
-        return self.norm4(tgt + ffn(tgt, self.linear1, self.linear2))
+                                     memory_key_padding_mask, generator)
+        tgt = self.norm3(tgt + dropout_u8(tgt2, rate, generator))
+        tgt2 = ffn(tgt, self.linear1, self.linear2, rate, generator)
+        return self.norm4(tgt + dropout_u8(tgt2, rate, generator))
 
 
 class JointEncoder(nn.Module):
@@ -69,9 +76,9 @@ class JointEncoder(nn.Module):
             EncoderLayer(d_model, nhead, dim_feedforward, dropout)
             for _ in range(num_layers))
 
-    def forward(self, src, pos, key_padding_mask):
+    def forward(self, src, pos, key_padding_mask, generator=None):
         for layer in self.layers:
-            src = layer(src, pos, key_padding_mask)
+            src = layer(src, pos, key_padding_mask, generator)
         return src
 
 
@@ -87,9 +94,11 @@ class QueryDecoder(nn.Module):
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, tgt, memory, query_pos, pos, memory_key_padding_mask):
+    def forward(self, tgt, memory, query_pos, pos, memory_key_padding_mask,
+                generator=None):
         intermediate = []
         for layer in self.layers:
-            tgt = layer(tgt, memory, query_pos, pos, memory_key_padding_mask)
+            tgt = layer(tgt, memory, query_pos, pos, memory_key_padding_mask,
+                        generator)
             intermediate.append(self.norm(tgt))
         return torch.stack(intermediate, dim=0)

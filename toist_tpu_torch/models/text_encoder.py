@@ -3,7 +3,11 @@
 Counterpart of ``toist_tpu/models/text_encoder.py``: learned byte-BPE
 embeddings, padding-offset position ids (``cumsum(mask) * mask + pad_id``),
 post-norm blocks with exact GELU, LayerNorm eps 1e-5. Its attention runs the
-plain path: the JAX package leaves RoBERTa's attention unfused.
+plain path: the JAX package leaves RoBERTa's attention unfused. In training
+mode every dropout site (embeddings, attention probabilities, attention and
+FFN outputs) is ``dropout_u8``; the JAX module uses flax's ``nn.Dropout``
+(32-bit bits, keep probability exactly 1 - rate) at all but the attention
+probabilities, so the port keeps 230/256 instead of 0.9 there.
 """
 from __future__ import annotations
 
@@ -13,8 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from toist_tpu_torch.models.layers import check_no_dropout
-from toist_tpu_torch.ops.flash_attention import attention_plain
+from toist_tpu_torch.models.layers import active_rate, dropout_u8
+from toist_tpu_torch.ops.flash_attention import (attention_keep,
+                                                 attention_plain)
 
 
 class RobertaEmbeddings(nn.Module):
@@ -28,14 +33,16 @@ class RobertaEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(1, hidden)
         self.LayerNorm = nn.LayerNorm(hidden, eps=1e-5)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        check_no_dropout(self, self.dropout)
+    def forward(self, input_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         mask = (input_ids != self.pad_id).long()
         position_ids = torch.cumsum(mask, dim=1) * mask + self.pad_id
         x = self.word_embeddings(input_ids)
         x = x + self.position_embeddings(position_ids)
         x = x + self.token_type_embeddings(torch.zeros_like(input_ids))
-        return self.LayerNorm(x)
+        return dropout_u8(self.LayerNorm(x),
+                          active_rate(self, self.dropout, generator),
+                          generator)
 
 
 class _SelfAttention(nn.Module):
@@ -76,16 +83,20 @@ class RobertaLayer(nn.Module):
         self.intermediate = _Intermediate(hidden, intermediate)
         self.output = _Output(intermediate, hidden)
 
-    def forward(self, x: torch.Tensor,
-                key_padding_mask: torch.Tensor) -> torch.Tensor:
-        check_no_dropout(self, self.dropout)
+    def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = active_rate(self, self.dropout, generator)
         sa = self.attention.self
-        attn, _ = attention_plain(sa.query(x), sa.key(x), sa.value(x),
-                                  key_padding_mask, self.num_heads)
+        q, k = sa.query(x), sa.key(x)
+        attn, _ = attention_plain(q, k, sa.value(x), key_padding_mask,
+                                  self.num_heads,
+                                  attention_keep(q, k, self.num_heads, rate,
+                                                 generator), rate)
         out = self.attention.output
-        x = out.LayerNorm(x + out.dense(attn))
+        x = out.LayerNorm(x + dropout_u8(out.dense(attn), rate, generator))
         h = F.gelu(self.intermediate.dense(x))
-        return self.output.LayerNorm(x + self.output.dense(h))
+        return self.output.LayerNorm(
+            x + dropout_u8(self.output.dense(h), rate, generator))
 
 
 class _Encoder(nn.Module):
@@ -119,13 +130,14 @@ class RobertaEncoder(nn.Module):
         self.pooler = _Pooler(hidden_size) if add_pooler else None
 
     def forward(self, input_ids: torch.Tensor,
-                key_padding_mask: Optional[torch.Tensor] = None
+                key_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         if key_padding_mask is None:
             key_padding_mask = input_ids == self.pad_id
-        x = self.embeddings(input_ids)
+        x = self.embeddings(input_ids, generator)
         for layer in self.encoder.layer:
-            x = layer(x, key_padding_mask)
+            x = layer(x, key_padding_mask, generator)
         if self.pooler is not None:
             return x, torch.tanh(self.pooler.dense(x[:, 0]))
         return x

@@ -12,10 +12,14 @@ transformer) runs in ``cfg.compute_dtype`` after ``to_compute_dtype()``; the
 class/box heads and contrastive projections run in f32 on an f32 copy of the
 decoder output, as in the JAX package. Backbone features in the cache are
 NCHW (channels_last memory); token tensors are [B, S, D].
+
+Training mode (``.train()``) drops as the JAX model does with
+``deterministic=False``; ``encode``, ``decode`` and ``forward`` then take the
+step's ``generator`` (the JAX model's "dropout" rng).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -112,7 +116,8 @@ class TOIST(nn.Module):
         return self
 
     def encode(self, images: torch.Tensor, image_mask: torch.Tensor,
-               text_ids: torch.Tensor, text_mask: torch.Tensor
+               text_ids: torch.Tensor, text_mask: torch.Tensor,
+               generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
         """images [B,H,W,3] u8 (normalized here) or f32 normalized;
         image_mask [B,H,W] True = pad; text_ids [B,T] int; text_mask [B,T]
@@ -143,16 +148,17 @@ class TOIST(nn.Module):
                                     pos_tokens], dim=1)
             img_token_mask = torch.cat(
                 [img_token_mask.new_zeros(B, 1), img_token_mask], dim=1)
-            text_last, text_pooled = tr.text_encoder(text_ids, text_mask)
+            text_last, text_pooled = tr.text_encoder(text_ids, text_mask,
+                                                     generator)
         else:
-            text_last = tr.text_encoder(text_ids, text_mask)
-        text_resized = tr.resizer(text_last)
+            text_last = tr.text_encoder(text_ids, text_mask, generator)
+        text_resized = tr.resizer(text_last, generator)
 
         joint = torch.cat([img_tokens, text_resized.to(dt)], dim=1)
         joint_mask = torch.cat([img_token_mask, text_mask], dim=1)
         joint_pos = torch.cat([pos_tokens, torch.zeros_like(text_resized,
                                                             dtype=dt)], dim=1)
-        img_memory = tr.encoder(joint, joint_pos, joint_mask)
+        img_memory = tr.encoder(joint, joint_pos, joint_mask, generator)
         T = text_ids.shape[1]
         cache = {
             "text_memory_resized": text_resized,
@@ -174,7 +180,9 @@ class TOIST(nn.Module):
         return cache
 
     def decode(self, memory_cache: Dict[str, torch.Tensor],
-               use_modified_memory: bool = False) -> Dict[str, torch.Tensor]:
+               use_modified_memory: bool = False,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
         """Decoder over the (possibly modified) memory, then the heads."""
         mem_key = "img_memory_mod" if use_modified_memory else "img_memory"
         memory = memory_cache[mem_key]
@@ -185,7 +193,7 @@ class TOIST(nn.Module):
         tgt = torch.zeros_like(query_pos)
         hs = self.transformer.decoder(tgt, memory, query_pos,
                                       memory_cache["pos_embed"],
-                                      memory_cache["mask"])
+                                      memory_cache["mask"], generator)
         hs32 = hs.float()
         outputs_class = self.class_embed(hs32)           # [L, B, Q, C+1]
         outputs_coord = torch.sigmoid(self.bbox_embed(hs32))
@@ -207,6 +215,8 @@ class TOIST(nn.Module):
             out["aux_proj_queries"] = pq[:-1]
         return out
 
-    def forward(self, images, image_mask, text_ids, text_mask):
-        cache = self.encode(images, image_mask, text_ids, text_mask)
-        return self.decode(cache), cache
+    def forward(self, images, image_mask, text_ids, text_mask,
+                generator: Optional[torch.Generator] = None):
+        cache = self.encode(images, image_mask, text_ids, text_mask,
+                            generator)
+        return self.decode(cache, generator=generator), cache

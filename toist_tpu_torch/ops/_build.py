@@ -3,9 +3,11 @@
 Each ``.cu`` file is compiled on first use with ``nvcc`` into a shared
 library that exposes a plain C interface, and loaded with ``ctypes``. The
 library goes to ``build/kernels/`` at the repository root, named after a hash
-of its source and of the compiler flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing here runs at import time: the CPU-only test
-machines have no ``nvcc``.
+of its source, of the shared headers (``csrc/*.cuh``) and of the compiler
+flags, so an edited source is rebuilt and an unchanged one is reused.
+``load_libraries`` starts one ``nvcc`` per missing library, all at once.
+Nothing here runs at import time: the CPU-only test machines have no
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -42,30 +44,55 @@ def find_nvcc() -> str:
                        "kernels of toist_tpu_torch are built at first use")
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<source>``; cached per process."""
+def _so_path(source: str) -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+
+
+def load_libraries(sources: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build (if needed) and load ``csrc/<source>`` for each source; the
+    missing ones compile in parallel. Cached per process."""
     with _LOCK:
-        if source in _LIBS:
-            return _LIBS[source]
-        src_path = os.path.join(CSRC, source)
-        with open(src_path, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        stem = os.path.splitext(source)[0]
-        so_path = os.path.join(BUILD_DIR,
-                               f"{stem}-{digest.hexdigest()[:16]}.so")
+        todo = [s for s in sources if s not in _LIBS]
+        paths = {s: _so_path(s) for s in todo}
         t0 = time.perf_counter()
-        if not os.path.exists(so_path):
+        jobs = []
+        for source in todo:
+            if os.path.exists(paths[source]):
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, source)]
+            jobs.append((source, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for source, tmp, cmd, proc in jobs:
+            _, err = proc.communicate()
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed for {source}:\n"
-                                   f"{' '.join(cmd)}\n{proc.stderr}")
-            os.replace(tmp, so_path)   # atomic: concurrent builds agree
-        BUILD_SECONDS[source] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so_path)
-        _LIBS[source] = lib
-        return lib
+                failed.append(f"nvcc failed for {source}:\n{' '.join(cmd)}"
+                              f"\n{err}")
+            else:
+                os.replace(tmp, paths[source])   # atomic: concurrent builds
+                                                 # agree
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        built = {source for source, *_ in jobs}
+        for source in todo:
+            BUILD_SECONDS[source] = (time.perf_counter() - t0
+                                     if source in built else 0.0)
+            _LIBS[source] = ctypes.CDLL(paths[source])
+        return {s: _LIBS[s] for s in sources}
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>``; cached per process."""
+    return load_libraries([source])[source]
