@@ -7,15 +7,19 @@ Phases, each of which raises on failure (non-zero exit):
   1. device: the card's name and power limit, and whether nvcc, triton and
      PIL are present;
   2. build: the hand-written CUDA kernels (flash-attention forward with
-     in-kernel dropout, its dK/dV and dQ backward, the LSA solver), one nvcc
-     per source, all started together, from toist_tpu_torch/csrc into
-     build/kernels;
+     in-kernel dropout, its dK/dV and dQ backward on the tensor cores for
+     bf16 and on scalar FMAs for f32, the LSA solver), one nvcc per source,
+     all started together, from toist_tpu_torch/csrc into build/kernels;
+     each kernel's registers, shared memory and spills as ptxas reports
+     them;
   3. kernel vs plain: the flash-attention forward against its plain PyTorch
      version at the slice's shapes (encoder self-attention [8,S,256] and
      decoder cross-attention [8,100,256] over [8,S,256], 8 heads, S = 1114
      on the 800x1344 serving canvas and 1156 on 832x1344), with
      and without a key padding mask, in f32 (TF32 off, atol 2e-5) and bf16
-     (atol/rtol 3e-2), and CUDA-event times of both;
+     (atol/rtol 3e-2), and CUDA-event times of both and of PyTorch's
+     scaled_dot_product_attention on the same inputs (the library
+     yardstick, which the port never calls), beside the kernel's bound;
   4. slice at full width: the serving path (Predictor -> TOIST encode/decode
      -> postprocess_boxes) with ResNet-101, RoBERTa-base and a 6+6-layer
      d256 transformer in bf16, weights random from a seed in the reference
@@ -30,31 +34,36 @@ Phases, each of which raises on failure (non-zero exit):
      forward and dQ/dK/dV against autograd through the plain version given
      the kernels' own dropout mask, at rate 0 and 0.1 (f32 within 5e-5 and
      bf16 within 2e-2 of each tensor's max abs; the fully masked row's dQ
-     and dK exactly 0); the same seed reproduces bit for bit; the kept
-     share lies within 1e-3 of 1 - 26/256; CUDA-event times of each kernel
-     and of the plain version;
+     and dK exactly 0); bf16 runs the tensor-core backward and f32 the
+     scalar one (route counters); the same seed reproduces bit for bit; the
+     kept share lies within 1e-3 of 1 - 26/256; CUDA-event times of each
+     kernel, of the plain version and of scaled_dot_product_attention's
+     forward, forward + backward and backward, beside each kernel's bound;
   7. LSA vs plain: [36,25,100] (continuous, padded rows, ties, NaN/inf
      rows) and [36,100,100] against the plain version (equal assignments)
      and scipy (equal assignments on continuous costs, equal total cost on
      ties); times of both;
-  8. training at full width: fixture data (toist_tpu.data.fixtures) through
-     BatchIterator on the batcher.train_buckets canvases, bf16 with f32
-     master weights, batch 6, dropout 0.1, one warm-up step and then an
+  8. training at full width: fixture data (toist_tpu_torch.data.fixtures)
+     through BatchIterator on the batcher.train_buckets canvases, bf16 with
+     f32 master weights, batch 6, dropout 0.1, one warm-up step and then an
      epoch through train_one_epoch / make_train_step; every loss finite,
-     12 forward, 12 dK/dV, 12 dQ attention launches and 1 LSA launch per
-     step, trainable parameters changed, frozen ones not, the EMA moved;
-     step ms, img/s and peak memory;
-  9. one training step with the kernels vs one without, in f32, dropout 0.
-     The run without kernels uses the plain attention and takes the
-     criterion to the CPU (plain LSA). The LSA kernel and the plain solver
-     give equal assignments on the same costs; a problem that the two runs
-     match differently must be a near-tie (the two assignments' costs
-     within 1e-4: a random model's queries predict near-equal boxes); held
-     to one matching, the losses agree within 1e-4 relative and the
-     gradients within 2e-3 of each tensor's max abs, except the two whose
-     gradient is 0 by construction (RoBERTa's key biases and the first
-     decoder self-attention's in_proj_weight; rounding noise in both runs),
-     which stay below 1e-4 of their module's other parameter's gradient.
+     12 forward, 12 dK/dV, 12 dQ attention launches (all 24 backward ones on
+     the tensor-core route) and 1 LSA launch per step, trainable parameters
+     changed, frozen ones not, the EMA moved; step ms, img/s and peak
+     memory; then torch.profiler over 3 steps on the largest canvas: device
+     kernel ms per step by kind against unprofiled step ms (busy share);
+  9. one training step with the kernels vs one without, in f32, dropout 0
+     (the scalar backward route). The run without kernels uses the plain
+     attention and takes the criterion to the CPU (plain LSA). The LSA
+     kernel and the plain solver give equal assignments on the same costs;
+     a problem that the two runs match differently must be a near-tie (the
+     two assignments' costs within 1e-4: a random model's queries predict
+     near-equal boxes); held to one matching, the losses agree within 1e-4
+     relative and the gradients within 2e-3 of each tensor's max abs,
+     except the two whose gradient is 0 by construction (RoBERTa's key
+     biases and the first decoder self-attention's in_proj_weight; rounding
+     noise in both runs), which stay below 1e-4 of their module's other
+     parameter's gradient.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -64,6 +73,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -81,6 +91,13 @@ GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}   # x max abs of the tensor
 DROP_RATE = 0.1
 LOSS_RTOL = 1e-4
 STEP_GRAD_TOL = 2e-3
+# H100 SXM peaks at the full 700 W (NVIDIA's data sheet): dense bf16 tensor
+# cores, f32 outside the tensor cores (the f32 kernels' scalar FMAs), HBM3.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES_S = 3.35e12
+# Matrix products of 2*B*Sq*S*D FLOP each: forward QK^T, PV; dK/dV kernel
+# QK^T, dO V^T, P~^T dO, dS^T Q; dQ kernel QK^T, dO V^T, dS K.
+PRODUCTS = {"fwd": 2, "dkv": 4, "dq": 3}
 
 
 def log(*a):
@@ -132,6 +149,36 @@ def phase_device():
     return smi, has_pil
 
 
+def ptxas_report(text):
+    """{kernel<dtype,hd>: {registers, smem_bytes, spill_store_bytes}} from
+    the compiler's -Xptxas -v output."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?kernel)",
+                             mangled)
+            name = base.group(1) if base else mangled
+            args = re.search(r"kernelI(\w*?)Li(\d+)E(?:Lb([01])E)?",
+                             mangled)
+            if args:   # <typename T, int HD>, or <int HD, bool DROP> (bf16)
+                dt = {"f": "f32,", "": "bf16,"}.get(args.group(1), "bf16,")
+                drop = {"1": ",dropout", "0": ",no dropout"}.get(
+                    args.group(3), "")
+                name += f"<{dt}{args.group(2)}{drop}>"
+            out[name] = {}
+        elif name and "bytes spill stores" in line:
+            out[name]["spill_store_bytes"] = int(
+                re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def phase_build():
     from toist_tpu_torch.ops import _build, lsa
     from toist_tpu_torch.ops.flash_attention import KERNEL_SOURCES
@@ -141,7 +188,62 @@ def phase_build():
     _build.load_libraries(sources)
     secs = {src: _build.BUILD_SECONDS[src] for src in sources}
     log(f"[build] {json.dumps(secs)}, wall {time.perf_counter() - t0:.2f} s")
-    return secs
+    ptxas = {}
+    for src in sources:
+        if src not in _build.BUILD_LOG:
+            log(f"[build] {src} was built before this run: no ptxas report")
+        ptxas.update(ptxas_report(_build.BUILD_LOG.get(src, "")))
+    for name, rep in ptxas.items():
+        log(f"[build] ptxas {name}: {json.dumps(rep)} (static smem; the "
+            f"f32 backward kernels take theirs dynamically)")
+    return secs, ptxas
+
+
+def attention_bound(kind, b, sq, s, dtype_name):
+    """(bound ms, "operations" or "bytes") of one attention kernel call:
+    its products over the card's peak rate for the dtype, against its
+    inputs read once and outputs written once over the memory rate."""
+    e = 2 if dtype_name == "bfloat16" else 4
+    q_b, kv_b = b * sq * D * e, b * s * D * e
+    rows_f32 = b * H * sq * 4                 # lse or D, [B, H, Sq] f32
+    mask_b = b * s                            # key padding mask, u8
+    nbytes = {"fwd": q_b + 2 * kv_b + mask_b + q_b + rows_f32,
+              "dkv": 2 * q_b + 2 * kv_b + mask_b + 2 * rows_f32 + 2 * kv_b,
+              "dq": 2 * q_b + 2 * kv_b + mask_b + 2 * rows_f32 + q_b}[kind]
+    flops = PRODUCTS[kind] * 2 * b * sq * s * D
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _sdpa_inputs(q, k, v, mask):
+    """[B, H, S, hd] copies of q, k, v and a boolean attn_mask [B, 1, 1, S]
+    (True = take part) in which every row keeps at least one real key:
+    SDPA's inputs for the library yardstick, made outside any timed region.
+    """
+    import torch
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], H, -1).transpose(1, 2) \
+            .contiguous()
+
+    keep = ~mask
+    keep[~keep.any(dim=1), 0] = True
+    return heads(q), heads(k), heads(v), keep[:, None, None, :].contiguous()
+
+
+def sdpa_backend(q, k, v, attn_mask, dropout_p):
+    """The name of the backend that scaled_dot_product_attention's dispatch
+    picks for these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    names = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend)
+             if n.isupper()}
+    choice = int(torch._fused_sdp_choice(q, k, v, attn_mask, dropout_p,
+                                         False))
+    return names.get(choice, str(choice))
 
 
 def attention_shapes():
@@ -149,8 +251,8 @@ def attention_shapes():
     800x1344 (batcher.default_buckets: the short side 800 is already a
     multiple of 32), so its joint sequence is 25*42 image + 64 text = 1114
     tokens; 832x1344, the top training canvas, gives 26*42 + 64 = 1156."""
-    from toist_tpu.config import Config
-    from toist_tpu.data.batcher import default_buckets
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.data.batcher import default_buckets
 
     data = Config().data
     h, w = default_buckets(data.max_size, data.val_size)[0]
@@ -201,6 +303,14 @@ def phase_kernel_vs_plain():
                                                                  H))
                     case["plain_ms"] = cuda_ms(lambda: attention_plain(
                         q, k, v, m, H))
+                    sq_, sk_, sv_, sm_ = _sdpa_inputs(q, k, v, m)
+                    case["library_ms"] = cuda_ms(
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(sq_, sk_, sv_, sm_))
+                    case["sdpa_backend"] = sdpa_backend(sq_, sk_, sv_, sm_,
+                                                        0.0)
+                    case["bound_ms"], case["bound_by"] = attention_bound(
+                        "fwd", B, Sq, S, dt_name)
                 log(f"[kernel] {json.dumps(case)}")
                 if not ok:
                     raise AssertionError(f"kernel disagrees with plain: "
@@ -212,7 +322,7 @@ def phase_kernel_vs_plain():
 def _requests(rng, spec, predictor, cfg):
     """Three collated batches: 8 landscape, 4 landscape (half empty) and 8
     portrait images, with mixed task ids."""
-    from toist_tpu.data.batcher import collate
+    from toist_tpu_torch.data.batcher import collate
 
     bs = cfg.optim.valid_batch_size
     batches = []
@@ -249,12 +359,10 @@ def phase_slice(smi, has_pil):
     import numpy as np
     import torch
 
-    from toist_tpu.config import Config
-    from toist_tpu.utils.convert import (convert_torch_state_dict,
-                                         synth_reference_state_dict)
+    from toist_tpu_torch.config import Config
     from toist_tpu_torch.ops.flash_attention import flash_attention
     from toist_tpu_torch.predict import Predictor
-    from toist_tpu_torch.utils.convert import jax_params_to_state_dict
+    from toist_tpu_torch.utils.convert import synth_reference_state_dict
 
     cfg = Config.from_sources(None, {"run": {"compute_eval_losses": False}})
     m = cfg.model
@@ -265,12 +373,9 @@ def phase_slice(smi, has_pil):
         text_layers=m.text_layers, text_hidden=m.text_hidden,
         text_intermediate=m.text_intermediate, num_queries=m.num_queries,
         contrastive_hdim=m.contrastive_hdim, with_masks=False, seed=SEED)
-    params, frozen = convert_torch_state_dict(
-        sd, d_model=m.hidden_dim, enc_layers=m.enc_layers,
-        dec_layers=m.dec_layers, stage_sizes=(3, 4, 23, 3))
-    state_dict = jax_params_to_state_dict(params, frozen)
-    del sd, params, frozen
-    predictor = Predictor.from_state_dict(state_dict, cfg, device="cuda")
+    state_dict = {k: torch.from_numpy(v) for k, v in sd.items()}
+    del sd
+    predictor = Predictor.from_state_dict(state_dict, cfg)
     n_params = sum(p.numel() for p in predictor.model.parameters())
     log(f"[slice] weights from seed {SEED}: {n_params} parameters, "
         f"{predictor.model.compute_dtype}, set-up "
@@ -331,7 +436,7 @@ def phase_slice(smi, has_pil):
 def phase_slice_kernel_vs_plain(state_dict, batch):
     import torch
 
-    from toist_tpu.config import Config
+    from toist_tpu_torch.config import Config
     from toist_tpu_torch.models.layers import set_fused_attention
     from toist_tpu_torch.models.toist import TOIST
     from toist_tpu_torch.train.step import eval_forward
@@ -354,12 +459,16 @@ def phase_slice_kernel_vs_plain(state_dict, batch):
     return errs
 
 
+COUNTERS = {"fwd": "launches", "dkv": "dkv_launches", "dq": "dq_launches",
+            "dkv_tc": "dkv_tc_launches", "dq_tc": "dq_tc_launches",
+            "dropout": "dropout_launches"}
+
+
 def reset_counts():
     from toist_tpu_torch.ops.flash_attention import flash_attention
     from toist_tpu_torch.ops.lsa import solve_lsa_batch
 
-    for name in ("launches", "dkv_launches", "dq_launches",
-                 "dropout_launches"):
+    for name in COUNTERS.values():
         setattr(flash_attention, name, 0)
     solve_lsa_batch.launches = 0
 
@@ -368,11 +477,9 @@ def read_counts():
     from toist_tpu_torch.ops.flash_attention import flash_attention
     from toist_tpu_torch.ops.lsa import solve_lsa_batch
 
-    return {"fwd": flash_attention.launches,
-            "dkv": flash_attention.dkv_launches,
-            "dq": flash_attention.dq_launches,
-            "dropout": flash_attention.dropout_launches,
-            "lsa": solve_lsa_batch.launches}
+    counts = {k: getattr(flash_attention, n) for k, n in COUNTERS.items()}
+    counts["lsa"] = solve_lsa_batch.launches
+    return counts
 
 
 def _rel_err(got, want):
@@ -421,20 +528,28 @@ def phase_attention_backward():
                                               c.float(), mask, H, keep,
                                               rate)[0]
 
+                before = read_counts()
                 got = _fwd_bwd(kernel, q, k, v, w)
+                after = read_counts()
                 again = _fwd_bwd(kernel, q, k, v, w)
                 torch.cuda.synchronize()
+                # bf16 runs the tensor-core route, f32 the scalar one.
+                tc = int(dt == torch.bfloat16)
+                route = {n: after[n] - before[n]
+                         for n in ("dkv", "dq", "dkv_tc", "dq_tc")}
                 want = _fwd_bwd(plain, q, k, v, w)
                 errs = {n: _rel_err(a, b) for n, a, b in
                         zip(("o", "dq", "dk", "dv"), got, want)}
                 case = {"shape": shape_name, "q": [TRAIN_B, Sq, D],
                         "kv": [TRAIN_B, S, D], "dtype": dt_name,
-                        "rate": rate, "rel_err": errs,
+                        "rate": rate, "route_launches": route,
+                        "rel_err": errs,
                         "tol": GRAD_TOL[dt_name],
                         "max_abs_err": max((a.float() - b.float()).abs()
                                            .max().item() for a, b in
                                            zip(got, want))}
-                ok = (max(errs.values()) <= GRAD_TOL[dt_name]
+                ok = (route == {"dkv": 1, "dq": 1, "dkv_tc": tc, "dq_tc": tc}
+                      and max(errs.values()) <= GRAD_TOL[dt_name]
                       and all(torch.isfinite(t).all().item() for t in got)
                       and (got[1][TRAIN_B - 1] == 0).all().item()
                       and (got[2][TRAIN_B - 1] == 0).all().item()
@@ -446,6 +561,8 @@ def phase_attention_backward():
                 if shape_name != "encoder_480x800":
                     case.update(_attention_times(q, k, v, mask, mask_u8, w,
                                                  dq_, sd, keep, rate))
+                    case["bound"] = {kind: attention_bound(
+                        kind, TRAIN_B, Sq, S, dt_name) for kind in PRODUCTS}
                 log(f"[attn-bwd] {json.dumps(case)}")
                 if not ok:
                     raise AssertionError(f"attention kernels disagree with "
@@ -464,9 +581,13 @@ def _fwd_bwd(fn, q, k, v, w):
 
 
 def _attention_times(q, k, v, mask, mask_u8, w, drop_q, seed, keep, rate):
-    """CUDA-event ms of each kernel and of the plain version's forward and
-    backward (autograd, dQ + dK + dV together)."""
+    """CUDA-event ms of each kernel, of the plain version's forward and
+    backward (autograd, dQ + dK + dV together), and of PyTorch's
+    scaled_dot_product_attention (the library yardstick, never called by the
+    port) at the same rate: its forward, forward + backward, and backward
+    alone (autograd over a retained graph)."""
     import torch
+    import torch.nn.functional as F
 
     from toist_tpu_torch.ops import flash_attention as fa
 
@@ -480,13 +601,36 @@ def _attention_times(q, k, v, mask, mask_u8, w, drop_q, seed, keep, rate):
     def plain_bwd():
         torch.autograd.grad(op, (qp, kp, vp), do, retain_graph=True)
 
+    sq_, sk_, sv_, sm_ = _sdpa_inputs(q, k, v, mask)
+    sq_, sk_, sv_ = (t.requires_grad_() for t in (sq_, sk_, sv_))
+    sdo = do.reshape(sq_.shape[0], -1, H, sq_.shape[-1]).transpose(1, 2) \
+        .contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq_, sk_, sv_, sm_,
+                                              dropout_p=rate)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (sq_, sk_, sv_), sdo)
+
+    so = sdpa()
+
+    def sdpa_bwd():
+        torch.autograd.grad(so, (sq_, sk_, sv_), sdo, retain_graph=True)
+
+    with torch.no_grad():
+        library_fwd = cuda_ms(sdpa)
     return {"fwd_ms": cuda_ms(lambda: fa._launch_fwd(q, k, v, mask_u8, H,
                                                       drop_q, seed)),
             "dkv_ms": cuda_ms(lambda: fa._launch_dkv(*args)),
             "dq_ms": cuda_ms(lambda: fa._launch_dq(*args)),
             "plain_fwd_ms": cuda_ms(lambda: fa.attention_plain(
                 q, k, v, mask, H, keep, rate)),
-            "plain_bwd_ms": cuda_ms(plain_bwd)}
+            "plain_bwd_ms": cuda_ms(plain_bwd),
+            "library_fwd_ms": library_fwd,
+            "library_fwd_bwd_ms": cuda_ms(sdpa_fwd_bwd),
+            "library_bwd_ms": cuda_ms(sdpa_bwd),
+            "sdpa_backend": sdpa_backend(sq_, sk_, sv_, sm_, rate)}
 
 
 def phase_lsa():
@@ -534,6 +678,11 @@ def phase_lsa():
                 "problems_differing_from_scipy": int(scipy_bad)}
         if name in ("continuous", "100x100"):
             case["ms"] = cuda_ms(lambda: solve_lsa_batch(c_gpu, n_gpu))
+            # Bytes bound: the costs and counts read once, the assignment
+            # written once.
+            out_bytes = got.nbytes
+            case["bound_ms"] = (c_gpu.nbytes + n_gpu.nbytes + out_bytes) \
+                / PEAK_BYTES_S * 1e3
             t0 = time.perf_counter()
             for _ in range(5):
                 solve_lsa_batch_plain(c_gpu, n_gpu)
@@ -546,8 +695,8 @@ def phase_lsa():
 
 
 def _fixture_config(root):
-    from toist_tpu.config import Config
-    from toist_tpu.data.fixtures import generate_fixture
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.data.fixtures import generate_fixture
 
     generate_fixture(root, num_tasks=2, imgs_per_split=30, seed=SEED)
     return Config.from_sources(None, {"data": {
@@ -560,9 +709,9 @@ def phase_train(smi, state_dict, root):
     """The training slice at full width through train_one_epoch."""
     import torch
 
-    from toist_tpu.data.batcher import BatchIterator, BucketSpec, \
+    from toist_tpu_torch.data.batcher import BatchIterator, BucketSpec, \
         train_buckets
-    from toist_tpu.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
     from toist_tpu_torch.data.captions import build_tokenizer
     from toist_tpu_torch.models.toist import TOIST
     from toist_tpu_torch.train.criterion import build_weight_dict
@@ -622,9 +771,11 @@ def phase_train(smi, state_dict, root):
     for st in steps:
         log(f"[train] step {json.dumps(st)}")
     canvases = {tuple(st["canvas"]) for st in steps}
+    # bf16 training: every backward launch takes the tensor-core route.
     want = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
-            "dq": LAUNCHES_PER_FORWARD, "dropout": 3 * LAUNCHES_PER_FORWARD,
-            "lsa": 1}
+            "dq": LAUNCHES_PER_FORWARD, "dkv_tc": LAUNCHES_PER_FORWARD,
+            "dq_tc": LAUNCHES_PER_FORWARD,
+            "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1}
     bad = [st for st in steps if st["launches"] != want
            or not all(math.isfinite(v) for v in st["scalars"].values())]
     if len(steps) < 5 or len(canvases) < 2 or bad:
@@ -656,8 +807,93 @@ def phase_train(smi, state_dict, root):
         f"launches {json.dumps(launches)}, epoch summary "
         f"{json.dumps(summary)} | {smi}")
     first_batch = next(it.epoch(0, num_workers=1))
+    top = max(canvases, key=lambda hw: hw[0] * hw[1])
+    profile = _profile_steps(smi, step, state, it, top)
     return {"steps": steps, "launches": launches, "peak_gib": peak,
-            "img_s": total_img / total_s}, first_batch
+            "img_s": total_img / total_s, "profile": profile}, first_batch
+
+
+def _kernel_kind(name):
+    """Coarse kind of a CUDA kernel, from its name."""
+    low = name.lower()
+    for kind, keys in (
+            ("attention forward", ("flash_fwd_kernel",)),
+            ("attention dK/dV", ("flash_bwd_dkv",)),
+            ("attention dQ", ("flash_bwd_dq",)),
+            ("LSA", ("lsa",)),
+            ("optimizer (foreach)", ("multi_tensor", "foreach")),
+            ("GEMM / convolution", ("gemm", "xmma", "cutlass", "conv",
+                                    "cudnn", "sm90", "sm80", "nhwc",
+                                    "nchw", "wgrad", "dgrad", "fprop")),
+            ("reduction", ("reduce", "norm", "softmax", "cunn_",
+                           "cross_entropy")),
+            ("copy / memset", ("memcpy", "memset", "copy")),
+            ("elementwise", ("elementwise", "vectorized", "unrolled",
+                             "index", "where"))):
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def _profile_steps(smi, step, state, it, canvas, n=3):
+    """torch.profiler over n bf16 training steps on one canvas after a
+    warm-up step there: device kernel ms per step by kind and by attention
+    kernel, against the host-clock ms of n unprofiled steps (busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [b for b in it.epoch(2, num_workers=1)
+               if tuple(b["images"].shape[1:3]) == canvas]
+    while len(batches) < n + 1:
+        batches += batches
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    wall = []
+    for b in batches[1:n + 1]:
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[1:n + 1]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+    kinds, by_name, launches, top = {}, {}, 0, []
+    for e in prof.key_averages():
+        # Device events only; a user annotation (the optimizer's
+        # "Optimizer.step#..." range) spans kernels counted on their own.
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        ms = us / 1e3 / n
+        kind = _kernel_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        launches += e.count
+        top.append((ms, e.key[:70], kind, e.count / n))
+        if kind.startswith("attention") or kind == "LSA":
+            by_name[e.key[:60]] = {"ms_per_step": ms, "calls_per_step":
+                                   e.count / n}
+    kernel_ms = sum(kinds.values())
+    res = {"canvas": list(canvas), "steps": n, "wall_ms": wall,
+           "kernel_ms_per_step": kernel_ms,
+           "busy_share": [kernel_ms / w for w in wall],
+           "kernel_launches_per_step": launches / n,
+           "ms_per_step_by_kind": dict(sorted(kinds.items(),
+                                              key=lambda kv: -kv[1])),
+           "attention_and_lsa": by_name,
+           "top_kernels": [{"ms_per_step": ms, "name": name, "kind": kind,
+                            "calls_per_step": calls}
+                           for ms, name, kind, calls in sorted(top)[::-1][:12]]}
+    if kernel_ms <= 0:      # the profiler saw no device time: not measured
+        res = {"canvas": list(canvas), "wall_ms": wall,
+               "kernel_ms_per_step": "not measured"}
+    log(f"[profile] bf16 training step {json.dumps(res)} | {smi}")
+    return res
 
 
 def phase_train_kernel_vs_plain(state_dict, batch):
@@ -665,7 +901,7 @@ def phase_train_kernel_vs_plain(state_dict, batch):
     kernels and without them."""
     import torch
 
-    from toist_tpu.config import Config
+    from toist_tpu_torch.config import Config
     from toist_tpu_torch.models.layers import set_fused_attention
     from toist_tpu_torch.models.toist import TOIST
     from toist_tpu_torch.ops.matching import hungarian_match_levels, \
@@ -778,8 +1014,10 @@ def phase_train_kernel_vs_plain(state_dict, batch):
     log(f"[train-f32] kernels vs plain {json.dumps(res)} (tolerances: "
         f"losses {LOSS_RTOL}, gradients {STEP_GRAD_TOL}, zero by "
         f"construction 1e-4, cost gap 1e-4)")
+    # f32: the scalar backward route, no dropout.
     want = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
-            "dq": LAUNCHES_PER_FORWARD, "dropout": 0, "lsa": 1}
+            "dq": LAUNCHES_PER_FORWARD, "dkv_tc": 0, "dq_tc": 0,
+            "dropout": 0, "lsa": 1}
     if (not solver_equal or max(gaps, default=0.0) > 1e-4
             or loss_err > LOSS_RTOL or grad_err > STEP_GRAD_TOL
             or noise > 1e-4
@@ -792,15 +1030,12 @@ def phase_train_kernel_vs_plain(state_dict, batch):
 def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.getcwd())
-    # The native tokenizer library builds inside the checkout.
-    os.environ.setdefault("TOIST_NATIVE_DIR",
-                          os.path.join(os.getcwd(), "build", "native"))
     import torch
 
     smi, has_pil = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     cases = phase_kernel_vs_plain()
     state_dict, batch, launches = phase_slice(smi, has_pil)
     phase_slice_kernel_vs_plain(state_dict, batch)
@@ -817,6 +1052,15 @@ def main() -> int:
            and c["dtype"] == "bfloat16"}
     lsa_main = next(c for c in lsa_cases if c["case"] == "continuous")
     tl = train["launches"]
+    bf16_attn = [c for c in attn if c["dtype"] == "bfloat16"]
+    enc32 = next(c for c in attn if c["shape"] == "encoder_832x1344"
+                 and c["dtype"] == "float32" and c["rate"] == 0.0)
+    f32_route = "toist_tpu_torch/csrc/flash_attn_bwd.cu"
+
+    def from_case(c, kind):
+        return {"bound_ms": c["bound"][kind][0],
+                "bound_by": c["bound"][kind][1]}
+
     record = {"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -827,6 +1071,10 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "sdpa_backend": main_case["sdpa_backend"],
         "build_s": build_s,
         "cases": cases,
     }, {
@@ -838,25 +1086,42 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in attn if c["rate"]),
         "ms": enc[DROP_RATE]["fwd_ms"],
         "plain_ms": enc[DROP_RATE]["plain_fwd_ms"],
+        **from_case(enc[DROP_RATE], "fwd"),
+        "library_ms": enc[DROP_RATE]["library_fwd_ms"],
     }, {
-        "name": "flash_attn_bwd_dkv",
+        "name": "flash_attn_bwd_dkv_tc",
         "route": "cuda",
-        "source": "toist_tpu_torch/csrc/flash_attn_bwd.cu",
+        "source": "toist_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "replaces": "toist_tpu/ops/flash_attention.py:147",
-        "launches": tl["dkv"],
-        "max_abs_err": max(c["max_abs_err"] for c in attn),
+        "launches": tl["dkv_tc"],
+        "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dkv_ms"],
+        "ms_rate_0.1": enc[DROP_RATE]["dkv_ms"],
         "plain_ms": enc[0.0]["plain_bwd_ms"],
+        **from_case(enc[0.0], "dkv"),
+        # SDPA's backward gives dQ, dK and dV together: the pair's yardstick.
+        "library_ms": enc[0.0]["library_bwd_ms"],
+        "sdpa_backend": enc[0.0]["sdpa_backend"],
+        "ptxas": {k: v for k, v in ptxas.items() if "dkv_tc" in k},
+        # f32 inputs take the scalar kernel (phase 9's f32 step).
+        "f32_route": {"source": f32_route, "ms": enc32["dkv_ms"],
+                      **from_case(enc32, "dkv")},
         "cases": attn,
     }, {
-        "name": "flash_attn_bwd_dq",
+        "name": "flash_attn_bwd_dq_tc",
         "route": "cuda",
-        "source": "toist_tpu_torch/csrc/flash_attn_bwd.cu",
+        "source": "toist_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "replaces": "toist_tpu/ops/flash_attention.py:193",
-        "launches": tl["dq"],
-        "max_abs_err": max(c["max_abs_err"] for c in attn),
+        "launches": tl["dq_tc"],
+        "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dq_ms"],
+        "ms_rate_0.1": enc[DROP_RATE]["dq_ms"],
         "plain_ms": enc[0.0]["plain_bwd_ms"],
+        **from_case(enc[0.0], "dq"),
+        "library_ms": enc[0.0]["library_bwd_ms"],
+        "ptxas": {k: v for k, v in ptxas.items() if "dq_tc" in k},
+        "f32_route": {"source": f32_route, "ms": enc32["dq_ms"],
+                      **from_case(enc32, "dq")},
     }, {
         "name": "lsa",
         "route": "cuda",
@@ -866,8 +1131,12 @@ def main() -> int:
         "max_abs_err": 0,
         "ms": lsa_main["ms"],
         "plain_ms": lsa_main["plain_ms"],
+        "bound_ms": lsa_main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,          # no PyTorch call solves an assignment
         "cases": lsa_cases,
-    }], "train": {k: train[k] for k in ("launches", "peak_gib", "img_s")}}
+    }], "train": {k: train[k] for k in ("launches", "peak_gib", "img_s",
+                                        "profile")}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

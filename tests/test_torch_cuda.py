@@ -5,9 +5,10 @@ elsewhere. On the card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Tolerances: forward f32 with TF32 off 2e-5 (only the order of the sums
 differs), bf16 3e-2 (as tests/test_flash_attention.py). Gradients: f32 within
 5e-5 of each tensor's max abs value (sums over up to 300 rows in another
-order); bf16 kernels against the plain version in f32 on the same bf16
-inputs, within 2e-2 of the max (the kernels compute in f32 and round only
-their outputs). LSA: exact assignments on continuous costs and ties (the
+order); bf16 kernels (the tensor-core route) against the plain version in
+f32 on the same bf16 inputs, within 2e-2 of the max (the kernels accumulate
+in f32 and round P~ and dS to bf16 for the products, as FlashAttention-2
+does); the same seed reproduces them bit for bit. LSA: exact assignments on continuous costs and ties (the
 kernel and the plain version run the same algorithm in the same f32 order).
 """
 import numpy as np
@@ -119,13 +120,21 @@ def test_kernels_with_gradients_match_plain(cuda, dtype, sq, s, heads, d,
     dq_ = drop_threshold(rate)
     keep = (dropout_keep_mask(seed, 2, heads, sq, s, rate) if dq_ else None)
     mask_u8 = None if mask is None else mask.view(torch.uint8)
-    counts = (flash_attention.launches, flash_attention.dkv_launches,
-              flash_attention.dq_launches)
-    got = _grads(lambda a, b, c: FlashAttention.apply(
-        a, b, c, mask_u8, heads, dq_, seed if dq_ else None)[0], q, k, v, w)
+    names = ("launches", "dkv_launches", "dq_launches", "dkv_tc_launches",
+             "dq_tc_launches")
+    counts = [getattr(flash_attention, n) for n in names]
+
+    def kernels(a, b, c):
+        return FlashAttention.apply(a, b, c, mask_u8, heads, dq_,
+                                    seed if dq_ else None)[0]
+
+    got = _grads(kernels, q, k, v, w)
     torch.cuda.synchronize()
-    assert (flash_attention.launches, flash_attention.dkv_launches,
-            flash_attention.dq_launches) == tuple(c + 1 for c in counts)
+    tc = int(dtype == torch.bfloat16)      # the tensor-core route is bf16's
+    assert [getattr(flash_attention, n) - c for n, c in
+            zip(names, counts)] == [1, 1, 1, tc, tc]
+    again = _grads(kernels, q, k, v, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = _grads(lambda a, b, c: attention_plain(
         a.float(), b.float(), c.float(), mask, heads, keep, rate)[0],
         q, k, v, w)

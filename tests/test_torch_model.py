@@ -15,11 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from toist_tpu.config import Config, ModelConfig
+from toist_tpu.config import ModelConfig
 from toist_tpu.models.postprocess import postprocess_boxes
 from toist_tpu.models.toist import build_model
 from toist_tpu.utils.convert import (convert_torch_state_dict,
                                      synth_reference_state_dict)
+from toist_tpu_torch import config as pconfig
 from toist_tpu_torch.models.layers import FUSED_MIN_KV
 from toist_tpu_torch.models.postprocess import \
     postprocess_boxes as p_postprocess
@@ -35,6 +36,7 @@ TINY = ModelConfig(backbone="resnet18-test", hidden_dim=64, nheads=4,
                    text_hidden=64, text_layers=2, text_heads=4,
                    text_intermediate=128, dropout=0.0, resizer_dropout=0.0,
                    fused_attention="interpret")
+PTINY = pconfig.ModelConfig(**dataclasses.asdict(TINY))   # the port's own
 VOCAB = 600
 B, HI, WI, T = 2, 448, 640, 16
 TOL = 2e-3
@@ -81,7 +83,7 @@ def tiny_pair():
     params, frozen = convert_torch_state_dict(
         sd, d_model=64, enc_layers=2, dec_layers=2, stage_sizes=(1, 1, 1, 1))
     port = TOIST.from_state_dict(jax_params_to_state_dict(params, frozen),
-                                 TINY)
+                                 PTINY, device="cpu")
     jmodel = build_model(TINY, text_vocab_size=VOCAB, tiny_text=True,
                          backbone_norm="frozen_bn")
     rng = np.random.default_rng(9)
@@ -159,8 +161,9 @@ def test_modified_memory_seam(tiny_pair):
 
 def test_eval_step(tiny_pair):
     port, _, _, batch = tiny_pair
-    wd = build_weight_dict(Config().loss, False, TINY.dec_layers)
-    cfg = Config.from_sources(None, {"run": {"compute_eval_losses": False}})
+    wd = build_weight_dict(pconfig.Config().loss, False, TINY.dec_layers)
+    cfg = pconfig.Config.from_sources(None, {"run": {
+        "compute_eval_losses": False}})
     res = make_eval_step(port, cfg, wd)(batch)
     assert res["scalars"] == {}
     assert res["post"]["scores"].shape == (B, 20)
@@ -172,7 +175,8 @@ def test_eval_step(tiny_pair):
                "positive_map": np.zeros((B, 2, 256), np.float32),
                "sample_valid": np.ones((B,), bool)}
     targets["positive_map"][:, :, 1:3] = 0.5
-    full = make_eval_step(port, Config(), wd)(dict(batch, **targets))
+    full = make_eval_step(port, pconfig.Config(), wd)(dict(batch,
+                                                          **targets))
     assert {"loss", "loss_ce", "loss_bbox", "loss_giou",
             "loss_contrastive_align"} <= set(full["scalars"])
     assert all(torch.isfinite(v) for v in full["scalars"].values())
@@ -181,11 +185,11 @@ def test_eval_step(tiny_pair):
 
 
 def test_train_mode_with_dropout_raises():
-    cfg = dataclasses.replace(TINY, dropout=0.1)
+    cfg = dataclasses.replace(PTINY, dropout=0.1)
     sd = jax_params_to_state_dict(*convert_torch_state_dict(
         _synth(with_masks=False), d_model=64, enc_layers=2, dec_layers=2,
         stage_sizes=(1, 1, 1, 1)))
-    model = TOIST.from_state_dict(sd, cfg).train()
+    model = TOIST.from_state_dict(sd, cfg, device="cpu").train()
     x = torch.zeros(1, 64, 64, 3, dtype=torch.uint8)
     m = torch.zeros(1, 64, 64, dtype=torch.bool)
     ids = torch.full((1, 4), 5, dtype=torch.int32)

@@ -20,6 +20,7 @@ from toist_tpu.models.toist import build_model
 from toist_tpu.predict import Predictor as JaxPredictor
 from toist_tpu.utils.convert import (convert_torch_state_dict,
                                      synth_reference_state_dict)
+from toist_tpu_torch import config as pconfig
 from toist_tpu_torch.data import captions
 from toist_tpu_torch.predict import Predictor
 from toist_tpu_torch.utils.convert import jax_params_to_state_dict
@@ -28,8 +29,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 2e-3
 
 
-def _cfg():
-    return Config.from_sources(None, {
+def _cfg(config=Config):
+    """The test's configuration as ``config`` (the JAX package's Config
+    or the port's own) builds it from the same sources."""
+    return config.from_sources(None, {
         "model": {"backbone": "resnet18-test", "hidden_dim": 64, "nheads": 4,
                   "dim_feedforward": 128, "enc_layers": 1, "dec_layers": 1,
                   "num_queries": 10, "compute_dtype": "float32",
@@ -44,8 +47,8 @@ def _cfg():
 
 @pytest.fixture(scope="module")
 def predictors():
-    cfg = _cfg()
-    tokenizer = captions.build_tokenizer(cfg)
+    cfg, pcfg = _cfg(), _cfg(pconfig.Config)
+    tokenizer = captions.build_tokenizer(pcfg)
     sd = synth_reference_state_dict(
         stage_sizes=(1, 1, 1, 1), enc=1, dec=1, d=64, dim_feedforward=128,
         text_layers=1, text_hidden=64, text_intermediate=128,
@@ -56,7 +59,7 @@ def predictors():
     jmodel = build_model(cfg.model, text_vocab_size=tokenizer.vocab_size)
     jax_pred = JaxPredictor(jmodel, params, frozen, tokenizer, cfg)
     port = Predictor.from_state_dict(jax_params_to_state_dict(params, frozen),
-                                     cfg, tokenizer=tokenizer)
+                                     pcfg, device="cpu", tokenizer=tokenizer)
     return jax_pred, port
 
 
@@ -82,7 +85,7 @@ def test_predictor_matches_jax(predictors):
 
 def test_predict_batch_half_empty(predictors):
     """A batch with fewer images than rows answers only the real rows."""
-    from toist_tpu.data.batcher import collate
+    from toist_tpu_torch.data.batcher import collate
 
     _, port = predictors
     rng = np.random.default_rng(1)
@@ -103,8 +106,8 @@ def test_predict_batch_half_empty(predictors):
 def test_captions_match_jax_package():
     from toist_tpu.main import build_tokenizer as jax_build_tokenizer
 
-    cfg = _cfg()
-    ours, theirs = captions.build_tokenizer(cfg), jax_build_tokenizer(cfg)
+    ours = captions.build_tokenizer(_cfg(pconfig.Config))
+    theirs = jax_build_tokenizer(_cfg())
     assert ours.vocab_size == theirs.vocab_size
     for t in TASKS:
         cap = captions.task_caption(t)

@@ -29,6 +29,7 @@ from toist_tpu.train.step import make_eval_step as jax_make_eval_step
 from toist_tpu.train.step import model_forward
 from toist_tpu.utils.convert import (convert_torch_state_dict,
                                      synth_reference_state_dict)
+from toist_tpu_torch import config as pconfig
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.ops import matching as pmatch
 from toist_tpu_torch.train import criterion as pcrit
@@ -159,9 +160,9 @@ def test_loss_matches_jax(loss):
 
 def test_set_criterion_matches_jax():
     out, batch = _outputs_and_batch(3)
-    cfg = LossConfig()
-    want = jcrit.set_criterion(_jax(out), _jax(batch), cfg)
-    got = pcrit.set_criterion(_torch(out), _torch(batch), cfg)
+    want = jcrit.set_criterion(_jax(out), _jax(batch), LossConfig())
+    got = pcrit.set_criterion(_torch(out), _torch(batch),
+                              pconfig.LossConfig())
     assert set(got) == set(want)
     for k in want:
         if k.startswith("_"):
@@ -174,8 +175,8 @@ def test_set_criterion_matches_jax():
 
 def test_num_boxes_override_and_given_matching():
     out, batch = _outputs_and_batch(4)
-    cfg = LossConfig()
-    base = pcrit.set_criterion(_torch(out), _torch(batch), cfg)
+    cfg, pcfg = LossConfig(), pconfig.LossConfig()
+    base = pcrit.set_criterion(_torch(out), _torch(batch), pcfg)
     nb = float(pcrit.compute_num_boxes(_t(batch["box_valid"]),
                                        _t(batch["sample_valid"])))
     # 3 valid boxes on the valid samples; the padding row's are not counted
@@ -186,14 +187,14 @@ def test_num_boxes_override_and_given_matching():
     want = jcrit.set_criterion(
         _jax(out), dict(_jax(batch), num_boxes_override=jnp.float32(2.5)),
         cfg)
-    got = pcrit.set_criterion(_torch(out), tb, cfg)
+    got = pcrit.set_criterion(_torch(out), tb, pcfg)
     for k in ("loss_ce", "loss_bbox", "loss_giou", "loss_contrastive_align_1"):
         np.testing.assert_allclose(float(got[k]), float(base[k]) * nb / 2.5,
                                    rtol=1e-5)
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5)
     matching = torch.stack([base["_tgt2query_0"], base["_tgt2query_1"],
                             base["_tgt2query"]])
-    again = pcrit.set_criterion(_torch(out), _torch(batch), cfg, matching)
+    again = pcrit.set_criterion(_torch(out), _torch(batch), pcfg, matching)
     for k in base:
         assert torch.equal(again[k], base[k]), k
 
@@ -201,16 +202,16 @@ def test_num_boxes_override_and_given_matching():
 @pytest.mark.parametrize("kw", [{}, {"softkd_loss": True, "cluster": True,
                                      "nsthl2_loss": True}])
 def test_weight_dict_and_total_loss_match_jax(kw):
-    cfg = LossConfig(**kw)
+    cfg, pcfg = LossConfig(**kw), pconfig.LossConfig(**kw)
     for masks in (False, True):
-        assert pcrit.build_weight_dict(cfg, masks, 6) == \
+        assert pcrit.build_weight_dict(pcfg, masks, 6) == \
             jcrit.build_weight_dict(cfg, masks, 6)
-    wd = pcrit.build_weight_dict(cfg, False, 3)
+    wd = pcrit.build_weight_dict(pcfg, False, 3)
     out, batch = _outputs_and_batch(5)
     want = jcrit.total_loss(jcrit.set_criterion(_jax(out), _jax(batch),
                                                 LossConfig()), wd)
     got = pcrit.total_loss(pcrit.set_criterion(_torch(out), _torch(batch),
-                                               LossConfig()), wd)
+                                               pconfig.LossConfig()), wd)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
@@ -218,11 +219,11 @@ def test_weight_dict_and_total_loss_match_jax(kw):
                                       "linear_with_warmup",
                                       "all_linear_with_warmup"])
 def test_schedules_match_jax(schedule):
-    cfg = OptimConfig(lr=1e-4, lr_backbone=1e-5, text_encoder_lr=5e-5,
-                      epochs=120, lr_drop=7, schedule=schedule)
+    kw = dict(lr=1e-4, lr_backbone=1e-5, text_encoder_lr=5e-5, epochs=120,
+              lr_drop=7, schedule=schedule)
     spe, total = 100, 12000
-    want = joptim.make_schedules(cfg, spe, total)
-    got = poptim.make_schedules(cfg, spe, total)
+    want = joptim.make_schedules(OptimConfig(**kw), spe, total)
+    got = poptim.make_schedules(pconfig.OptimConfig(**kw), spe, total)
     assert set(got) == {"model", "backbone", "text_encoder"}
     for step in (0, 1, 59, 60, 61, 699, 700, 5700, 5800, 11999, 12000):
         for g in got:
@@ -244,6 +245,7 @@ TINY = ModelConfig(backbone="resnet18-test", hidden_dim=64, nheads=4,
                    text_hidden=64, text_layers=2, text_heads=4,
                    text_intermediate=128, dropout=0.0, resizer_dropout=0.0,
                    fused_attention="off")
+PTINY = pconfig.ModelConfig(**dataclasses.asdict(TINY))   # the port's own
 
 
 @pytest.fixture(scope="module")
@@ -281,13 +283,13 @@ def _tiny_batch(b=4, h=128, w=160, n=6):
 
 
 def _port_state(sd, cfg):
-    model = TOIST.from_state_dict(sd, cfg.model)
+    model = TOIST.from_state_dict(sd, cfg.model, device="cpu")
     return init_train_state(model, cfg, steps_per_epoch=10, total_steps=100)
 
 
 def test_label_params_match_jax(tiny):
     sd, params, frozen = tiny
-    model = TOIST.from_state_dict(sd, TINY)
+    model = TOIST.from_state_dict(sd, PTINY, device="cpu")
     for kw in ({}, {"freeze_text_encoder": True}, {"frozen_detector": True}):
         got = poptim.label_params(model, **kw)
         jl = jax_params_to_state_dict(params, frozen)
@@ -317,7 +319,7 @@ def test_adamw_matches_optax():
     tx = optax.adamw(learning_rate=lr, weight_decay=1e-4)
     state, pj = tx.init(jnp.asarray(p0)), jnp.asarray(p0)
     pt = _t(p0.copy())
-    opt = poptim.make_optimizer({"model": [pt]}, OptimConfig())
+    opt = poptim.make_optimizer({"model": [pt]}, pconfig.OptimConfig())
     for i, g in enumerate(grads):
         upd, state = tx.update(jnp.asarray(g), state, pj)
         pj = optax.apply_updates(pj, upd)
@@ -339,7 +341,7 @@ def test_ema_update_and_moment_dtype():
     np.testing.assert_allclose(et.numpy(), np.asarray(want), rtol=1e-6)
     with pytest.raises(NotImplementedError, match="moment"):
         poptim.make_optimizer({"model": [et]},
-                              OptimConfig(moment_dtype="bfloat16"))
+                              pconfig.OptimConfig(moment_dtype="bfloat16"))
 
 
 def _zero_by_construction(name):
@@ -383,9 +385,10 @@ def test_tiny_train_step_matches_jax(tiny):
     jnew = jax_params_to_state_dict(optax.apply_updates(params, upd), frozen)
     jgrads = jax_params_to_state_dict(jg, frozen)
 
-    state = _port_state(sd, cfg)
+    pcfg = pconfig.Config(model=PTINY)
+    state = _port_state(sd, pcfg)
     scalars = accumulate_gradients(state, {k: _t(v) for k, v in
-                                           batch.items()}, cfg, wd)
+                                           batch.items()}, pcfg, wd)
     for k, v in jl.items():
         np.testing.assert_allclose(float(scalars[k]), float(v), rtol=1e-4,
                                    err_msg=k)
@@ -408,8 +411,8 @@ def test_tiny_train_step_matches_jax(tiny):
             bad.append((n, float(err), float(tol)))
     assert not bad, bad
 
-    state = _port_state(sd, cfg)
-    state, sc = make_train_step(cfg, wd)(state, batch)
+    state = _port_state(sd, pcfg)
+    state, sc = make_train_step(pcfg, wd)(state, batch)
     lr = max(cfg.optim.lr, cfg.optim.lr_backbone, cfg.optim.text_encoder_lr)
     for n, p in state.model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), jnew[n].numpy(),
@@ -422,7 +425,7 @@ def test_grad_accumulation_equals_full_batch(tiny):
     over the 4 (each microbatch normalised by the global box count / 2)."""
     sd = tiny[0]
     batch = {k: _t(v) for k, v in _tiny_batch().items()}
-    cfg = Config(model=TINY)
+    cfg = pconfig.Config(model=PTINY)
     wd = pcrit.build_weight_dict(cfg.loss, False, 2)
     full = _port_state(sd, cfg)
     sc_full = accumulate_gradients(full, batch, cfg, wd)
@@ -446,8 +449,8 @@ def test_eval_step_losses_match_jax(tiny):
                          backbone_norm="frozen_bn")
     want = jax_make_eval_step(jmodel, cfg, wd, frozen)(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
-    model = TOIST.from_state_dict(sd, TINY)
-    got = make_eval_step(model, cfg, wd)(batch)
+    model = TOIST.from_state_dict(sd, PTINY, device="cpu")
+    got = make_eval_step(model, pconfig.Config(model=PTINY), wd)(batch)
     assert set(got["scalars"]) == set(want["scalars"])
     for k, v in want["scalars"].items():
         np.testing.assert_allclose(float(got["scalars"][k]), float(v),
@@ -458,11 +461,11 @@ def test_eval_step_losses_match_jax(tiny):
 
 
 def test_dropout_is_seeded_per_step(tiny):
-    cfg = Config(model=dataclasses.replace(TINY, dropout=0.1,
-                                           resizer_dropout=0.1))
+    cfg = pconfig.Config(model=dataclasses.replace(PTINY, dropout=0.1,
+                                                   resizer_dropout=0.1))
     wd = pcrit.build_weight_dict(cfg.loss, False, 2)
     batch = {k: _t(v) for k, v in _tiny_batch().items()}
-    model = TOIST.from_state_dict(tiny[0], cfg.model).train()
+    model = TOIST.from_state_dict(tiny[0], cfg.model, device="cpu").train()
     losses = [float(forward_losses(model, batch, cfg, wd,
                                    torch.Generator().manual_seed(s))[0])
               for s in (1, 1, 2)]
@@ -475,29 +478,29 @@ def test_dropout_is_seeded_per_step(tiny):
 
 
 def test_train_one_epoch_on_fixture_data(tiny, tmp_path):
-    """train_one_epoch over a BatchIterator of fixture images (the JAX
-    package's data pipeline), on the CPU with the tiny model."""
-    from toist_tpu.data.batcher import BatchIterator, BucketSpec, \
+    """train_one_epoch over a BatchIterator of fixture images (the port's
+    own data pipeline and weights), on the CPU with the tiny model."""
+    from toist_tpu_torch.data.batcher import BatchIterator, BucketSpec, \
         train_buckets
-    from toist_tpu.data.cocotasks import build_task_dataset
-    from toist_tpu.data.fixtures import generate_fixture
     from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.data.fixtures import generate_fixture
+    from toist_tpu_torch.utils.convert import \
+        synth_reference_state_dict as port_synth
 
     root = generate_fixture(str(tmp_path), num_tasks=1, imgs_per_split=4,
                             img_size=(120, 160))
-    cfg = Config.from_sources(None, {
+    cfg = pconfig.Config.from_sources(None, {
         "data": {"coco_path": root, "refexp_ann_path": f"{root}/annotations",
                  "tasks": [1], "train_scales": [160], "max_size": 256},
         "model": dataclasses.asdict(dataclasses.replace(
-            TINY, num_queries=30))})
+            PTINY, num_queries=30))})
     d = cfg.data
     ds = [build_task_dataset(d, 1, "train", build_tokenizer(cfg))]
     spec = BucketSpec(buckets=train_buckets(d.max_size, d.train_scales))
     it = BatchIterator(ds, spec, batch_size=2, num_workers=1)
-    sd = synth_reference_state_dict(seed=5, **dict(_TINY_SD, num_queries=30))
-    state = _port_state(jax_params_to_state_dict(*convert_torch_state_dict(
-        sd, d_model=64, enc_layers=2, dec_layers=2,
-        stage_sizes=(1, 1, 1, 1))), cfg)
+    sd = port_synth(seed=5, **dict(_TINY_SD, num_queries=30))
+    state = _port_state({k: torch.from_numpy(v) for k, v in sd.items()}, cfg)
     step = make_train_step(cfg, pcrit.build_weight_dict(cfg.loss, False, 2))
     state, summary = train_one_epoch(step, state, it, epoch=0, print_freq=1)
     assert state.step == len(it) == 2

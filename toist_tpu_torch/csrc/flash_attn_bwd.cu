@@ -1,31 +1,19 @@
-// Flash-attention backward for Hopper (sm_90a): dK/dV and dQ, with the
-// forward's in-kernel dropout regenerated, not stored.
+// Flash-attention backward for Hopper (sm_90a), float32 route: dK/dV and
+// dQ as scalar f32 FMAs, with the forward's in-kernel dropout regenerated,
+// not stored. bfloat16 inputs go to the tensor-core kernels of
+// flash_attn_bwd_tc.cu instead; the wrapper chooses by dtype.
 //
 // Replaces the TPU kernels `_dkv_kernel` and `_dq_kernel`
-// (toist_tpu/ops/flash_attention.py, launched by `_backward`). With
-//     s  = q.k * scale * log2(e)        (NEG_INF * log2(e) for a masked key)
-//     P  = exp2(s - lse)                 (lse saved by the forward, base 2)
-//     M  = keep / (1 - q/256)            (1 without dropout)
-//     dP = dO V^T,   D = rowsum(dO o O)  (D computed by the caller)
-//     dS = P o (dP o M - D)              (0 for a masked key)
-// the kernels compute dV = (P o M)^T dO, dK = scale * dS^T Q and
-// dQ = scale * dS K, accumulating in f32 and storing in the input dtype.
-//
-// Masked keys: the forward replaces a masked logit by NEG_INF, as the plain
-// version's masked_fill does, and masked_fill passes no gradient to q or k
-// through a masked key. So dS is 0 there, unlike the TPU kernel's additive
-// bias (which sends a gradient through the fully masked rows of a padded
-// sample). A fully masked row softmaxes uniformly over its S real keys; its
-// saved lse = NEG_INF*log2(e) + log2(S) rounds to NEG_INF*log2(e) in f32, so
-// exp2(s - lse) would give 1, not 1/S. Such a row (lse below half of
-// NEG_INF*log2(e), which no real logit reaches) takes P = 1/S directly.
-// Keys past S have P = 0: bounds checks as in the forward, no padding.
+// (toist_tpu/ops/flash_attention.py, launched by `_backward`). The math and
+// the semantics of masked, fully masked and out-of-range keys are stated in
+// flash_attn_bwd.cuh.
 //
 // What bounds it: like the forward, the scores never reach device memory;
 // each kernel reads q, k, v, dO (and the mask) once per tile pass and writes
 // its gradients once. The arithmetic is scalar f32 FMAs: about twice the
-// forward's per (row, key) pair in each kernel. Tensor cores (mma.sync /
-// wgmma) are left for later work.
+// forward's per (row, key) pair in each kernel. It serves the f32 checks
+// (the f32 training step compared with the plain version), where TF32 or
+// bf16 tensor-core products would not meet their tolerance.
 //
 // Layout: dK/dV kernel, one CTA of 256 threads per (64-key tile, batch*head),
 // looping over all 64-row query tiles, so dK and dV are complete in one CTA
@@ -35,12 +23,33 @@
 // rows 4*ty+i, keys tx+16*j. Both kernels take dynamic shared memory above
 // 48 KB (about 72 KB and 55 KB at hd 32).
 
-#include "attn_dropout.cuh"
-#include "flash_attn_common.cuh"
+#include "flash_attn_bwd.cuh"
 
 namespace {
 
 constexpr int LP = TILE + 4;    // padded row of a [64, 64] score tile
+
+// P~ = P o M and dS of one (row, key) pair; row_ok is row < Sq, flag the
+// key's key_flag.
+__device__ __forceinline__ void grad_pair(const BwdParams& p, bool row_ok,
+                                          float flag, float s, float dp,
+                                          float lse, float dsum,
+                                          uint64_t row_key, int key,
+                                          float* pt, float* ds) {
+  *pt = 0.f;
+  *ds = 0.f;
+  if (!row_ok || flag == 2.f) return;
+  const float prob = lse < 0.5f * NEG_INF * LOG2E
+                         ? p.inv_S
+                         : exp2f((flag == 0.f ? s * p.scale_log2
+                                              : NEG_INF * LOG2E) - lse);
+  float m = 1.f;
+  if (p.drop_q > 0)
+    m = attn_drop_byte(row_key, key) >= (uint32_t)p.drop_q ? p.drop_scale
+                                                            : 0.f;
+  *pt = prob * m;
+  if (flag == 0.f) *ds = prob * (dp * m - dsum);
+}
 
 // Scores of this thread's 4x4 (row, key) block: s = Q K^T and dp = dO V^T.
 template <int HD, int LD>
@@ -80,36 +89,6 @@ __device__ __forceinline__ void score_block(const float (*Qs)[LD],
                     ov[i].z * vv[j].z + ov[i].w * vv[j].w;
       }
   }
-}
-
-struct BwdParams {
-  int H, Sq, S;
-  float scale;        // 1 / sqrt(hd)
-  float scale_log2;   // scale * log2(e)
-  float inv_S;        // P of every key in a fully masked row
-  int drop_q;
-  float drop_scale;
-};
-
-// P~ = P o M and dS of one (row, key) pair; row_ok is row < Sq.
-__device__ __forceinline__ void grad_pair(const BwdParams& p, bool row_ok,
-                                          float flag, float s, float dp,
-                                          float lse, float dsum,
-                                          uint64_t row_key, int key,
-                                          float* pt, float* ds) {
-  *pt = 0.f;
-  *ds = 0.f;
-  if (!row_ok || flag == 2.f) return;
-  const float prob = lse < 0.5f * NEG_INF * LOG2E
-                         ? p.inv_S
-                         : exp2f((flag == 0.f ? s * p.scale_log2
-                                              : NEG_INF * LOG2E) - lse);
-  float m = 1.f;
-  if (p.drop_q > 0)
-    m = attn_drop_byte(row_key, key) >= (uint32_t)p.drop_q ? p.drop_scale
-                                                            : 0.f;
-  *pt = prob * m;
-  if (flag == 0.f) *ds = prob * (dp * m - dsum);
 }
 
 template <typename T, int HD>
@@ -362,33 +341,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-bool make_params(int B, int H, int Sq, int S, int hd, int drop_q,
-                 const void* seed, BwdParams* p) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || S <= 0 || B * H > 65535 || drop_q < 0 ||
-      drop_q > 255 || (drop_q > 0 && seed == nullptr))
-    return false;
-  p->H = H;
-  p->Sq = Sq;
-  p->S = S;
-  p->scale = 1.f / sqrtf((float)hd);
-  p->scale_log2 = LOG2E / sqrtf((float)hd);
-  p->inv_S = 1.f / (float)S;
-  p->drop_q = drop_q;
-  p->drop_scale = (float)(1.0 / (1.0 - drop_q / 256.0));
-  return true;
-}
-
 }  // namespace
 
-// q, k, v, dout as the forward's inputs and output (dtype 0 = float32,
-// 1 = bfloat16, hd 16 or 32); mask [B, S] u8 or null; lse and dsum
-// [B, H, Sq] f32; dk, dv like k; dq like q. drop_q and seed as given to the
-// forward. Each returns a cudaError_t (0 = launched).
+// q, k, v, dout as the forward's inputs and output (dtype 0 = float32 only:
+// bfloat16 has the tensor-core entries of flash_attn_bwd_tc.cu; hd 16 or
+// 32); mask [B, S] u8 or null; lse and dsum [B, H, Sq] f32; dk, dv like k;
+// dq like q. drop_q and seed as given to the forward. Each returns a
+// cudaError_t (0 = launched).
 #define TOIST_DISPATCH(FN, ...)                                              \
   if (dtype == 0 && hd == 32) return FN<float, 32>(__VA_ARGS__);             \
   if (dtype == 0 && hd == 16) return FN<float, 16>(__VA_ARGS__);             \
-  if (dtype == 1 && hd == 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);     \
-  if (dtype == 1 && hd == 16) return FN<__nv_bfloat16, 16>(__VA_ARGS__);     \
   return (int)cudaErrorInvalidValue;
 
 extern "C" int toist_flash_attn_bwd_dkv(

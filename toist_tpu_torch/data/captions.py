@@ -1,23 +1,22 @@
 """Captions and tokenizer for the serving path.
 
-``build_tokenizer`` is a copy of ``toist_tpu/main.py:build_tokenizer``,
-kept here because ``toist_tpu/main.py`` imports jax at module level. The
-task phrases (``TASKS``) and ``finalize_text`` are the JAX package's own,
-from ``toist_tpu/data/cocotasks.py``; that module imports PIL, so they are
-imported where they are used, not at module level.
+``build_tokenizer`` is a copy of ``toist_tpu/main.py:build_tokenizer``.
+The task phrases (``TASKS``) come from the port's copy of
+``data/cocotasks.py``; that module imports PIL, so they are imported where
+they are used, not at module level.
 """
 from __future__ import annotations
 
 import json
 import os
 
-from toist_tpu.config import Config
-from toist_tpu.data.tokenizer import RobertaBPE
+from toist_tpu_torch.config import Config
+from toist_tpu_torch.data.tokenizer import RobertaBPE
 
 
 def task_caption(task_id: int) -> str:
     """The student's pronoun caption for a task ("verb something")."""
-    from toist_tpu.data.cocotasks import TASKS
+    from toist_tpu_torch.data.cocotasks import TASKS
 
     return TASKS[task_id] + "something"
 
@@ -25,7 +24,7 @@ def task_caption(task_id: int) -> str:
 def build_tokenizer(cfg: Config) -> RobertaBPE:
     """HF roberta-base vocab files if available, else a BPE trained on every
     caption this dataset can produce."""
-    from toist_tpu.data.cocotasks import TASKS
+    from toist_tpu_torch.data.cocotasks import TASKS
 
     ann = cfg.data.refexp_ann_path
     vocab_json = os.path.join(ann, "vocab.json") if ann else ""

@@ -24,7 +24,7 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from toist_tpu.config import ModelConfig
+from toist_tpu_torch.config import ModelConfig
 from toist_tpu_torch.models.joint_transformer import JointEncoder, QueryDecoder
 from toist_tpu_torch.models.layers import MLP, FeatureResizer
 from toist_tpu_torch.models.position_encoding import (
@@ -40,7 +40,7 @@ def normalize_uint8_images(images: torch.Tensor,
     """ImageNet normalization of raw u8 canvases [B, H, W, 3] on the device:
     the same f32 ``x * scale - shift`` affine as the host path, padded pixels
     forced to 0."""
-    from toist_tpu.data.transforms import _NORM_SCALE, _NORM_SHIFT
+    from toist_tpu_torch.data.transforms import _NORM_SCALE, _NORM_SHIFT
 
     scale = torch.as_tensor(_NORM_SCALE, device=images.device)
     shift = torch.as_tensor(_NORM_SHIFT, device=images.device)
@@ -95,9 +95,10 @@ class TOIST(nn.Module):
 
     @classmethod
     def from_state_dict(cls, state_dict: Mapping[str, torch.Tensor],
-                        cfg: ModelConfig, device="cpu") -> "TOIST":
+                        cfg: ModelConfig, device="cuda") -> "TOIST":
         """Build, load a reference-layout state dict (strict), move to
-        ``device``, cast the trunk to the compute dtype, and set eval mode."""
+        ``device`` (the card unless the caller asks for another), cast the
+        trunk to the compute dtype, and set eval mode."""
         vocab = state_dict[
             "transformer.text_encoder.embeddings.word_embeddings.weight"
         ].shape[0]

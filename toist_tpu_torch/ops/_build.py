@@ -5,7 +5,9 @@ library that exposes a plain C interface, and loaded with ``ctypes``. The
 library goes to ``build/kernels/`` at the repository root, named after a hash
 of its source, of the shared headers (``csrc/*.cuh``) and of the compiler
 flags, so an edited source is rebuilt and an unchanged one is reused.
-``load_libraries`` starts one ``nvcc`` per missing library, all at once.
+``load_libraries`` starts one ``nvcc`` per missing library, all at once,
+and keeps what ptxas reports of each kernel's registers, shared memory and
+spills (``-Xptxas -v``) in ``BUILD_LOG``.
 Nothing here runs at import time: the CPU-only test machines have no
 ``nvcc``.
 """
@@ -25,13 +27,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build in this process (0.0 when it was reused
 # from build/kernels); chip_smoke.py reports them.
 BUILD_SECONDS: Dict[str, float] = {}
+# The compiler's report of each library built in this process (ptxas -v).
+BUILD_LOG: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -81,6 +85,7 @@ def load_libraries(sources: Sequence[str]) -> Dict[str, ctypes.CDLL]:
                 failed.append(f"nvcc failed for {source}:\n{' '.join(cmd)}"
                               f"\n{err}")
             else:
+                BUILD_LOG[source] = err
                 os.replace(tmp, paths[source])   # atomic: concurrent builds
                                                  # agree
         if failed:

@@ -1,7 +1,8 @@
 """Multi-head attention over packed [B, S, D] projections: the hand-written
 CUDA flash-attention kernels (forward ``csrc/flash_attn_fwd.cu``, backward
-``csrc/flash_attn_bwd.cu``, in-kernel dropout ``csrc/attn_dropout.cuh``),
-their wrappers and their plain PyTorch version.
+``csrc/flash_attn_bwd_tc.cu`` on the tensor cores for bf16 and
+``csrc/flash_attn_bwd.cu`` for f32, in-kernel dropout
+``csrc/attn_dropout.cuh``), their wrappers and their plain PyTorch version.
 
 Counterpart of ``toist_tpu/ops/flash_attention.py``. The TPU kernel pads the
 head dim to 128 lanes and the sequence to 128-key tiles and uses a -2e9
@@ -14,8 +15,10 @@ which is also the kernels' test oracle, differentiated by autograd); CUDA
 tensors go through ``FlashAttention``, the ``torch.autograd.Function`` whose
 forward and backward launch the kernels (the counterpart of ``_make_mha``'s
 ``custom_vjp``), or raise. Launch counts: ``flash_attention.launches``
-(forward), ``.dkv_launches``, ``.dq_launches`` (backward), and
-``.dropout_launches``, the launches of any of the three with dropout on.
+(forward), ``.dkv_launches``, ``.dq_launches`` (backward, either route),
+``.dkv_tc_launches``, ``.dq_tc_launches`` (the bf16 tensor-core route
+alone), and ``.dropout_launches``, the launches of any of the three with
+dropout on.
 
 Dropout follows ``_dropout_u8``: 8 random bits per element, keep iff bits >=
 q = min(round(rate * 256), 255), kept values scaled by 1 / (1 - q/256). The
@@ -34,8 +37,9 @@ import torch
 NEG_INF = -1e9        # masked logits are replaced by this (layers.py NEG_INF)
 LOG2E = 1.4426950408889634
 FWD_SOURCE = "flash_attn_fwd.cu"
-BWD_SOURCE = "flash_attn_bwd.cu"
-KERNEL_SOURCES = (FWD_SOURCE, BWD_SOURCE)
+BWD_SOURCE = "flash_attn_bwd.cu"          # f32 backward
+BWD_TC_SOURCE = "flash_attn_bwd_tc.cu"    # bf16 backward, tensor cores
+KERNEL_SOURCES = (FWD_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
 HEAD_DIMS = (16, 32)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -196,10 +200,20 @@ def row_dsum(do: torch.Tensor, o: torch.Tensor, num_heads: int
         .transpose(1, 2).contiguous()
 
 
+def _bwd_route(dtype: torch.dtype) -> Tuple[str, str]:
+    """(source, entry suffix) of the backward kernels for ``dtype``: bf16
+    runs on the tensor cores, f32 on the scalar kernels. A dispatch by
+    dtype, never a fallback."""
+    if dtype == torch.bfloat16:
+        return BWD_TC_SOURCE, "_tc"
+    return BWD_SOURCE, ""
+
+
 def _launch_dkv(q, k, v, mask_u8, do, lse, dsum, num_heads, drop_q, seed):
     B, Sq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _fn(BWD_SOURCE, "toist_flash_attn_bwd_dkv", 9, 7)
+    source, suffix = _bwd_route(q.dtype)
+    fn = _fn(source, "toist_flash_attn_bwd_dkv" + suffix, 9, 7)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8),
                  do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
@@ -210,6 +224,7 @@ def _launch_dkv(q, k, v, mask_u8, do, lse, dsum, num_heads, drop_q, seed):
         raise RuntimeError(f"flash_attn_bwd_dkv launch failed: cudaError "
                            f"{err}")
     flash_attention.dkv_launches += 1
+    flash_attention.dkv_tc_launches += bool(suffix)
     flash_attention.dropout_launches += drop_q > 0
     return dk, dv
 
@@ -217,7 +232,8 @@ def _launch_dkv(q, k, v, mask_u8, do, lse, dsum, num_heads, drop_q, seed):
 def _launch_dq(q, k, v, mask_u8, do, lse, dsum, num_heads, drop_q, seed):
     B, Sq, D = q.shape
     dq = torch.empty_like(q)
-    fn = _fn(BWD_SOURCE, "toist_flash_attn_bwd_dq", 8, 7)
+    source, suffix = _bwd_route(q.dtype)
+    fn = _fn(source, "toist_flash_attn_bwd_dq" + suffix, 8, 7)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask_u8),
                  do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
@@ -228,6 +244,7 @@ def _launch_dq(q, k, v, mask_u8, do, lse, dsum, num_heads, drop_q, seed):
         raise RuntimeError(f"flash_attn_bwd_dq launch failed: cudaError "
                            f"{err}")
     flash_attention.dq_launches += 1
+    flash_attention.dq_tc_launches += bool(suffix)
     flash_attention.dropout_launches += drop_q > 0
     return dq
 
@@ -326,4 +343,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.dkv_launches = 0
 flash_attention.dq_launches = 0
+flash_attention.dkv_tc_launches = 0
+flash_attention.dq_tc_launches = 0
 flash_attention.dropout_launches = 0

@@ -20,9 +20,9 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from toist_tpu.config import Config
-from toist_tpu.data.batcher import BucketSpec, collate, default_buckets
-from toist_tpu.data.tokenizer import RobertaBPE
+from toist_tpu_torch.config import Config
+from toist_tpu_torch.data.batcher import BucketSpec, collate, default_buckets
+from toist_tpu_torch.data.tokenizer import RobertaBPE
 from toist_tpu_torch.data.captions import build_tokenizer, task_caption
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.train.step import eval_forward
@@ -45,7 +45,7 @@ class Predictor:
 
     @classmethod
     def from_state_dict(cls, state_dict: Mapping[str, torch.Tensor],
-                        cfg: Config, device="cpu",
+                        cfg: Config, device="cuda",
                         tokenizer: Optional[RobertaBPE] = None,
                         score_threshold: float = 0.0) -> "Predictor":
         """From a reference-layout state dict (e.g. ``torch.load`` of a
@@ -60,7 +60,7 @@ class Predictor:
         """One sample from an already resized u8 image [h, w, 3] and a task
         id. ``orig_size`` (h, w) is the size boxes are scaled back to; it
         defaults to the image's own."""
-        from toist_tpu.data.cocotasks import finalize_text
+        from toist_tpu_torch.data.cocotasks import finalize_text
 
         if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
             raise ValueError("image must be u8 [h, w, 3]")
@@ -113,7 +113,7 @@ class Predictor:
                  ) -> List[Dict[str, np.ndarray]]:
         """PIL images + task ids -> one dict per image: {"boxes" [K,4] xyxy
         absolute, "scores" [K], "labels" [K]}."""
-        from toist_tpu.data.transforms import resize, to_array_u8
+        from toist_tpu_torch.data.transforms import resize, to_array_u8
 
         if len(images) != len(task_ids):
             raise ValueError("one task id per image")

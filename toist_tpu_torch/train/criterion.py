@@ -17,7 +17,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from toist_tpu.config import LossConfig
+from toist_tpu_torch.config import LossConfig
 from toist_tpu_torch.ops import box_ops
 from toist_tpu_torch.ops.matching import hungarian_match_levels
 

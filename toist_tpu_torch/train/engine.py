@@ -1,10 +1,10 @@
 """The training epoch loop.
 
 Counterpart of ``toist_tpu/train/engine.py:train_one_epoch``: iterate the
-bucketed batches of a ``toist_tpu.data.batcher.BatchIterator``, copy each to
-the model's device from pinned memory, run the train step, and read the
-scalars back (a host sync) only every ``print_freq`` steps and at the last
-one, stopping the process on a non-finite loss as the reference does
+bucketed batches of a ``toist_tpu_torch.data.batcher.BatchIterator``, copy
+each to the model's device from pinned memory, run the train step, and read
+the scalars back (a host sync) only every ``print_freq`` steps and at the
+last one, stopping the process on a non-finite loss as the reference does
 (engine.py:82-85).
 """
 from __future__ import annotations
@@ -12,8 +12,8 @@ from __future__ import annotations
 import sys
 from typing import Callable, Dict, Tuple
 
-from toist_tpu.data.batcher import BatchIterator
-from toist_tpu.utils.logging import MetricLogger
+from toist_tpu_torch.data.batcher import BatchIterator
+from toist_tpu_torch.utils.logging import MetricLogger
 from toist_tpu_torch.train.state import TrainState
 from toist_tpu_torch.train.step import TRAIN_KEYS, batch_to_device
 

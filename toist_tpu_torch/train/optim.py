@@ -19,7 +19,7 @@ from typing import Callable, Dict, List
 
 import torch
 
-from toist_tpu.config import OptimConfig
+from toist_tpu_torch.config import OptimConfig
 
 GROUPS = ("model", "backbone", "text_encoder")
 

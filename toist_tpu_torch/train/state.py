@@ -16,7 +16,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from toist_tpu.config import Config
+from toist_tpu_torch.config import Config
 from toist_tpu_torch.train.optim import (GROUPS, freeze_parameters,
                                          label_params, make_optimizer,
                                          make_schedules)

@@ -16,7 +16,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from toist_tpu.config import Config
+from toist_tpu_torch.config import Config
 from toist_tpu_torch.models.postprocess import postprocess_boxes
 from toist_tpu_torch.train import criterion as crit
 from toist_tpu_torch.train.optim import ema_update
