@@ -153,6 +153,49 @@ def test_launch_counter_stays_zero_on_cpu():
     assert flash_attention.launches == before == 0
 
 
+def test_routes_by_dtype():
+    """bf16 runs the tensor-core kernels, f32 the scalar ones: a dispatch by
+    dtype, so one name per dtype and no fallback between them."""
+    from toist_tpu_torch.ops import flash_attention as fa
+
+    assert fa._fwd_route(torch.bfloat16) == (fa.FWD_TC_SOURCE, "_tc")
+    assert fa._fwd_route(torch.float32) == (fa.FWD_SOURCE, "")
+    assert fa._bwd_route(torch.bfloat16) == (fa.BWD_TC_SOURCE, "_tc")
+    assert fa._bwd_route(torch.float32) == (fa.BWD_SOURCE, "")
+    assert fa.FWD_TC_SOURCE == "flash_attn_fwd_tc.cu"
+
+
+def test_kernel_sources_are_listed_and_present():
+    import os
+
+    from toist_tpu_torch.ops import _build
+    from toist_tpu_torch.ops import flash_attention as fa
+    from toist_tpu_torch.ops.lsa import KERNEL_SOURCE
+
+    assert fa.FWD_TC_SOURCE in fa.KERNEL_SOURCES
+    on_disk = {f for f in os.listdir(_build.CSRC) if f.endswith(".cu")}
+    assert on_disk == set(fa.KERNEL_SOURCES) | {KERNEL_SOURCE}
+    # The two tensor-core sources share one header of building blocks.
+    for src in (fa.FWD_TC_SOURCE, fa.BWD_TC_SOURCE):
+        with open(os.path.join(_build.CSRC, src)) as f:
+            assert '#include "flash_attn_tc.cuh"' in f.read()
+
+
+def test_tc_forward_counter_stays_zero_on_cpu():
+    """bf16 CPU tensors take the plain version: no kernel, no count."""
+    before = flash_attention.fwd_tc_launches
+    q, k, v, rng = _qkv(15, 100, 300)
+    args = [torch.from_numpy(a).bfloat16().requires_grad_()
+            for a in (q, k, v)]
+    mask = torch.from_numpy(rng.random((B, 300)) < 0.2)
+    o, _ = flash_attention(*args, mask, H, 0.1,
+                           torch.Generator().manual_seed(0))
+    o.float().sum().backward()
+    assert o.dtype == torch.bfloat16
+    assert flash_attention.fwd_tc_launches == before == 0
+    assert flash_attention.launches == 0
+
+
 def test_wrapper_rejects_bad_inputs():
     q = torch.zeros(B, 10, D)
     with pytest.raises(ValueError):

@@ -30,11 +30,11 @@ namespace {
 constexpr int LP = TILE + 4;    // padded row of a [64, 64] score tile
 
 // P~ = P o M and dS of one (row, key) pair; row_ok is row < Sq, flag the
-// key's key_flag.
+// key's key_flag, pair_key the dropout key of the row's pair.
 __device__ __forceinline__ void grad_pair(const BwdParams& p, bool row_ok,
                                           float flag, float s, float dp,
                                           float lse, float dsum,
-                                          uint64_t row_key, int key,
+                                          uint64_t pair_key, int row, int key,
                                           float* pt, float* ds) {
   *pt = 0.f;
   *ds = 0.f;
@@ -45,8 +45,9 @@ __device__ __forceinline__ void grad_pair(const BwdParams& p, bool row_ok,
                                               : NEG_INF * LOG2E) - lse);
   float m = 1.f;
   if (p.drop_q > 0)
-    m = attn_drop_byte(row_key, key) >= (uint32_t)p.drop_q ? p.drop_scale
-                                                            : 0.f;
+    m = attn_drop_keep(attn_drop_word(pair_key, key / 2),
+                       attn_drop_lshift(row, key), p.drop_q)
+            ? p.drop_scale : 0.f;
   *pt = prob * m;
   if (flag == 0.f) *ds = prob * (dp * m - dsum);
 }
@@ -156,12 +157,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int r = 4 * ty + i;
       const int row = q0 + r;
-      const uint64_t rk = p.drop_q > 0 ? attn_drop_row_key(sd, bh, row) : 0;
+      const uint64_t pk = p.drop_q > 0 ? attn_drop_pair_key(sd, bh, row / 2)
+                                       : 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        grad_pair(p, row < Sq, Flag[c], s[i][j], dp[i][j], Lse[r], Dl[r], rk,
-                  k0 + c, &PT[r][c], &DS[r][c]);
+        grad_pair(p, row < Sq, Flag[c], s[i][j], dp[i][j], Lse[r], Dl[r], pk,
+                  row, k0 + c, &PT[r][c], &DS[r][c]);
       }
     }
     __syncthreads();   // PT, DS complete
@@ -235,12 +237,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Lse[tid] = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
     Dl[tid] = row < Sq ? dsum[(size_t)bh * Sq + row] : 0.f;
   }
-  uint64_t row_key[4] = {0, 0, 0, 0};
+  uint64_t pair_key[2] = {0, 0};   // rows 4*ty .. 4*ty+3: two row pairs
   if (p.drop_q > 0) {
     const uint64_t sd = *seed;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      row_key[i] = attn_drop_row_key(sd, bh, q0 + 4 * ty + i);
+    for (int i = 0; i < 2; ++i)
+      pair_key[i] = attn_drop_pair_key(sd, bh, (q0 + 4 * ty) / 2 + i);
   }
 
   const int rr = tid / 4;              // accumulated row of this thread
@@ -266,7 +268,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = tx + 16 * j;
         float pt;
         grad_pair(p, q0 + r < Sq, Flag[c], s[i][j], dp[i][j], Lse[r], Dl[r],
-                  row_key[i], k0 + c, &pt, &DS[r][c]);
+                  pair_key[i / 2], q0 + r, k0 + c, &pt, &DS[r][c]);
       }
     }
     __syncthreads();   // DS complete

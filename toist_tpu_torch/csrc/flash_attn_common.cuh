@@ -1,8 +1,10 @@
-// Tiling constants and tile loaders shared by the flash-attention forward
-// (flash_attn_fwd.cu) and backward (flash_attn_bwd.cu) kernels.
+// Tiling constants and tile loaders shared by the flash-attention kernels:
+// the f32 forward (flash_attn_fwd.cu) and backward (flash_attn_bwd.cu), and,
+// for the constants and key_flag, the bf16 tensor-core kernels
+// (flash_attn_tc.cuh).
 //
 // q/k/v/o/dO are [B, S, H*hd] row-major and read in place at column h*hd;
-// a tile is 64 rows of one head, converted to f32 in shared memory.
+// a tile of the f32 kernels is 64 rows of one head in shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,7 +21,7 @@ constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e9f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <typename T> struct Vec8;   // 8 elements <-> 8 floats, 16-byte aligned
+template <typename T> struct Vec8;   // 8 elements -> 8 floats, 16-byte aligned
 
 template <> struct Vec8<float> {
   static __device__ __forceinline__ void load(const float* p, float* out) {
@@ -30,25 +32,9 @@ template <> struct Vec8<float> {
   }
 };
 
-template <> struct Vec8<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
 __device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
-// Copy rows [row0, row0 + TILE) of one head into smem[TILE][LD] as f32;
+// Copy rows [row0, row0 + TILE) of one head into smem[TILE][LD];
 // rows at or past n_rows are zero-filled.
 template <typename T, int HD, int LD>
 __device__ __forceinline__ void load_tile(float (*smem)[LD], const T* base,

@@ -1,4 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), with in-kernel dropout.
+// Flash-attention forward for Hopper (sm_90a), float32 route, with in-kernel
+// dropout. bfloat16 inputs go to the tensor-core kernel of
+// flash_attn_fwd_tc.cu instead, which computes the same O and LSE; the
+// wrapper chooses by dtype.
 //
 // Replaces the TPU kernel `_fwd_kernel` (toist_tpu/ops/flash_attention.py,
 // launched by `_forward`) and its dropout (`_drop_tile` / `_drop_row`). It
@@ -15,8 +18,9 @@
 // keeps scores and probabilities in registers and shared memory (an online,
 // flash-2 style softmax over key tiles) and reads only q, k, v and the key
 // padding mask, so its device-memory traffic is that of its inputs and
-// output. Arithmetic is scalar f32 FMAs (about 11 GFLOP per encoder call);
-// tensor cores (mma.sync / wgmma) and TMA are left for later work.
+// output. Arithmetic is scalar f32 FMAs (about 11 GFLOP per encoder call),
+// which the f32 checks need (phases 5 and 9 of chip_smoke.py): TF32 or bf16
+// tensor-core products would not meet their tolerance.
 //
 // Layout: q [B, Sq, H*hd], k and v [B, S, H*hd], contiguous, read in place
 // at column offset h*hd (no head-major transpose, no padding of the head
@@ -35,6 +39,7 @@
 // does, so the LSE is that of the undropped softmax and the backward kernels
 // recompute P from it. The keep bits come from attn_dropout.cuh, keyed on
 // (*seed, bh, row, column); q = 0 skips them and is the inference path.
+
 //
 // Tiling: one CTA of 256 threads per (64-query tile, batch*head). Thread
 // (ty, tx) = (tid / 16, tid % 16) owns query rows 4*ty .. 4*ty+3 of the
@@ -78,12 +83,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, HD, LD>(Qs, qb, q0, Sq, D);
 
-  uint64_t row_key[4] = {0, 0, 0, 0};
+  // Rows 4*ty .. 4*ty+3 are the dropout row pairs 2*ty and 2*ty + 1 of the
+  // tile (q0 is even).
+  uint64_t pair_key[2] = {0, 0};
   if (drop_q > 0) {
     const uint64_t sd = *seed;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      row_key[i] = attn_drop_row_key(sd, bh, q0 + 4 * ty + i);
+    for (int i = 0; i < 2; ++i)
+      pair_key[i] = attn_drop_pair_key(sd, bh, (q0 + 4 * ty) / 2 + i);
   }
 
   float m[4], l[4], acc[4][OC];
@@ -147,9 +154,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         float p = exp2f(s[i][j] - m_new);
         rs += p;
-        if (drop_q > 0)
-          p = attn_drop_byte(row_key[i], k0 + tx + 16 * j) >= (uint32_t)drop_q
+        if (drop_q > 0) {
+          const int col = k0 + tx + 16 * j;
+          p = attn_drop_keep(attn_drop_word(pair_key[i / 2], col / 2),
+                             attn_drop_lshift(i, col), drop_q)
                   ? p * drop_scale : 0.f;
+        }
         Ps[4 * ty + i][tx + 16 * j] = p;
       }
 #pragma unroll
@@ -220,15 +230,17 @@ __global__ void dropout_mask_kernel(const uint64_t* __restrict__ seed,
   const int row = blockIdx.y;
   const int bh = blockIdx.z;
   if (col >= S) return;
-  const uint64_t rk = attn_drop_row_key(*seed, bh, row);
+  const uint32_t word =
+      attn_drop_word(attn_drop_pair_key(*seed, bh, row / 2), col / 2);
   keep[((size_t)bh * Sq + row) * S + col] =
-      attn_drop_byte(rk, col) >= (uint32_t)drop_q ? 1 : 0;
+      attn_drop_keep(word, attn_drop_lshift(row, col), drop_q);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; drop_q in [0, 255] (0 = no dropout; seed
-// is then not read). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 only (bfloat16 has toist_flash_attn_fwd_tc); drop_q in
+// [0, 255] (0 = no dropout; seed is then not read). Returns a cudaError_t
+// (0 = launched).
 extern "C" int toist_flash_attn_fwd(const void* q, const void* k,
                                     const void* v, const void* mask, void* o,
                                     void* lse, int B, int H, int Sq, int S,
@@ -243,8 +255,6 @@ extern "C" int toist_flash_attn_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 32) return launch<float, 32>(q, k, v, m, o, l, B, H, Sq, S, drop_q, sd, s);
   if (dtype == 0 && hd == 16) return launch<float, 16>(q, k, v, m, o, l, B, H, Sq, S, drop_q, sd, s);
-  if (dtype == 1 && hd == 32) return launch<__nv_bfloat16, 32>(q, k, v, m, o, l, B, H, Sq, S, drop_q, sd, s);
-  if (dtype == 1 && hd == 16) return launch<__nv_bfloat16, 16>(q, k, v, m, o, l, B, H, Sq, S, drop_q, sd, s);
   return (int)cudaErrorInvalidValue;
 }
 

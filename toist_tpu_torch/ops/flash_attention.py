@@ -1,8 +1,9 @@
 """Multi-head attention over packed [B, S, D] projections: the hand-written
-CUDA flash-attention kernels (forward ``csrc/flash_attn_fwd.cu``, backward
-``csrc/flash_attn_bwd_tc.cu`` on the tensor cores for bf16 and
-``csrc/flash_attn_bwd.cu`` for f32, in-kernel dropout
-``csrc/attn_dropout.cuh``), their wrappers and their plain PyTorch version.
+CUDA flash-attention kernels (forward and backward on the tensor cores for
+bf16, ``csrc/flash_attn_fwd_tc.cu`` and ``csrc/flash_attn_bwd_tc.cu``; on
+scalar FMAs for f32, ``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu``; in-kernel dropout ``csrc/attn_dropout.cuh``),
+their wrappers and their plain PyTorch version.
 
 Counterpart of ``toist_tpu/ops/flash_attention.py``. The TPU kernel pads the
 head dim to 128 lanes and the sequence to 128-key tiles and uses a -2e9
@@ -14,17 +15,20 @@ past S by bounds checks, so neither padding nor that bias exists here.
 which is also the kernels' test oracle, differentiated by autograd); CUDA
 tensors go through ``FlashAttention``, the ``torch.autograd.Function`` whose
 forward and backward launch the kernels (the counterpart of ``_make_mha``'s
-``custom_vjp``), or raise. Launch counts: ``flash_attention.launches``
-(forward), ``.dkv_launches``, ``.dq_launches`` (backward, either route),
+``custom_vjp``), or raise. The kernels are chosen by dtype (``_fwd_route``,
+``_bwd_route``), never as a fallback. Launch counts:
+``flash_attention.launches`` (forward), ``.dkv_launches``, ``.dq_launches``
+(backward), each on either route; ``.fwd_tc_launches``,
 ``.dkv_tc_launches``, ``.dq_tc_launches`` (the bf16 tensor-core route
-alone), and ``.dropout_launches``, the launches of any of the three with
+alone); and ``.dropout_launches``, the launches of any of the three with
 dropout on.
 
 Dropout follows ``_dropout_u8``: 8 random bits per element, keep iff bits >=
 q = min(round(rate * 256), 255), kept values scaled by 1 / (1 - q/256). The
 kernels draw the bits from a hash of (seed, batch*head, row, column), so they
 cannot equal the plain version's ``torch.randint`` bits; ``dropout_keep_mask``
-materialises the kernels' mask so that ``attention_plain`` can be given it.
+materialises the kernels' mask so that ``attention_plain`` can be given it,
+and ``dropout_keep_mask_plain`` is the same hash in numpy.
 """
 from __future__ import annotations
 
@@ -32,14 +36,16 @@ import ctypes
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = -1e9        # masked logits are replaced by this (layers.py NEG_INF)
 LOG2E = 1.4426950408889634
-FWD_SOURCE = "flash_attn_fwd.cu"
+FWD_SOURCE = "flash_attn_fwd.cu"          # f32 forward, dropout mask
+FWD_TC_SOURCE = "flash_attn_fwd_tc.cu"    # bf16 forward, tensor cores
 BWD_SOURCE = "flash_attn_bwd.cu"          # f32 backward
 BWD_TC_SOURCE = "flash_attn_bwd_tc.cu"    # bf16 backward, tensor cores
-KERNEL_SOURCES = (FWD_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
+KERNEL_SOURCES = (FWD_SOURCE, FWD_TC_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
 HEAD_DIMS = (16, 32)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -170,11 +176,21 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+def _fwd_route(dtype: torch.dtype) -> Tuple[str, str]:
+    """(source, entry suffix) of the forward kernel for ``dtype``: bf16 runs
+    on the tensor cores, f32 on the scalar kernel. A dispatch by dtype,
+    never a fallback."""
+    if dtype == torch.bfloat16:
+        return FWD_TC_SOURCE, "_tc"
+    return FWD_SOURCE, ""
+
+
 def _launch_fwd(q, k, v, mask_u8, num_heads, drop_q, seed):
     B, Sq, D = q.shape
     S = k.shape[1]
     _check_kernel_inputs(q, num_heads, ("q", q), ("k", k), ("v", v))
-    fn = _fn(FWD_SOURCE, "toist_flash_attn_fwd", 6, 7)
+    source, suffix = _fwd_route(q.dtype)
+    fn = _fn(source, "toist_flash_attn_fwd" + suffix, 6, 7)
     o = torch.empty_like(q)
     lse = torch.empty((B, num_heads, Sq), dtype=torch.float32,
                       device=q.device)
@@ -184,8 +200,10 @@ def _launch_fwd(q, k, v, mask_u8, num_heads, drop_q, seed):
                  D // num_heads, _DTYPE_CODES[q.dtype], drop_q, _ptr(seed),
                  _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attn_fwd{suffix} launch failed: cudaError "
+                           f"{err}")
     flash_attention.launches += 1
+    flash_attention.fwd_tc_launches += bool(suffix)
     flash_attention.dropout_launches += drop_q > 0
     return o, lse
 
@@ -306,6 +324,51 @@ def dropout_keep_mask(seed: torch.Tensor, batch: int, num_heads: int,
     return keep.bool()
 
 
+_U64 = np.uint64
+
+
+def _mix64(z):
+    """SplitMix64's finaliser (attn_dropout.cuh attn_mix64) on uint64."""
+    z = (z ^ (z >> _U64(30))) * _U64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> _U64(27))) * _U64(0x94D049BB133111EB)
+    return z ^ (z >> _U64(31))
+
+
+def _mix32(h):
+    """MurmurHash3's 32-bit finaliser (attn_mix32) on uint32."""
+    h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+    h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def dropout_keep_mask_plain(seed: int, batch: int, num_heads: int, sq: int,
+                            s: int, rate: float) -> torch.Tensor:
+    """The kernels' keep mask [B, H, Sq, S] (bool) for ``seed`` and ``rate``,
+    computed in numpy: the bit function of ``csrc/attn_dropout.cuh`` in
+    uint64 / uint32 arithmetic, which wraps as the device's does.
+
+    Per (batch*head bh, query-row pair p) a 64-bit key
+    mix64(mix64(seed + G64 (bh + 1)) + p); per 2x2 block (row pair p, key
+    pair j) one word mix32(low32(key) ^ j G32); element (row, col) keeps iff
+    byte (row & 1) * 2 + (col & 1) of its block's word is >= q."""
+    q = drop_threshold(rate)
+    if q == 0:
+        raise ValueError("the kernels' mask exists for rate > 0 only")
+    r, c = np.arange(sq), np.arange(s)
+    bh = np.arange(batch * num_heads, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        base = _mix64(_U64(seed % 2 ** 64)
+                      + _U64(0x9E3779B97F4A7C15) * (bh + _U64(1)))
+        key = _mix64(base[:, None] + (r // 2).astype(np.uint64)[None, :])
+        word = _mix32(key.astype(np.uint32)[:, :, None]
+                      ^ ((c // 2).astype(np.uint32)
+                         * np.uint32(0x9E3779B9))[None, None, :])
+    shift = ((r & 1)[:, None] * 2 + (c & 1)[None, :]) * 8
+    byte = (word >> shift.astype(np.uint32)[None]) & np.uint32(0xFF)
+    keep = byte >= q
+    return torch.from_numpy(keep.reshape(batch, num_heads, sq, s))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: Optional[torch.Tensor], num_heads: int,
                     dropout_rate: float = 0.0,
@@ -341,6 +404,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.fwd_tc_launches = 0
 flash_attention.dkv_launches = 0
 flash_attention.dq_launches = 0
 flash_attention.dkv_tc_launches = 0
