@@ -11,7 +11,8 @@ Phases, each of which raises on failure (non-zero exit):
      FMAs for f32, with in-kernel dropout; the LSA solver), one nvcc per
      source, all started together, from toist_tpu_torch/csrc into
      build/kernels; each kernel's registers, shared memory and spills as
-     ptxas reports them (flash_fwd_tc_kernel among them);
+     ptxas reports them (flash_fwd_tc_kernel among them; every
+     instantiation of the LSA kernel, which must not spill);
   3. kernel vs plain: the flash-attention forward against its plain PyTorch
      version at the slice's shapes (encoder self-attention [8,S,256] and
      decoder cross-attention [8,100,256] over [8,S,256], 8 heads, S = 1114
@@ -41,9 +42,15 @@ Phases, each of which raises on failure (non-zero exit):
      the kernels' dropout mask equals dropout_keep_mask_plain (numpy) bit
      for bit and its kept share lies within 1e-3 of 1 - 26/256;
   7. LSA vs plain: [36,25,100] (continuous, padded rows, ties, NaN/inf
-     rows) and [36,100,100] against the plain version (equal assignments)
-     and scipy (equal assignments on continuous costs, equal total cost on
-     ties); the plain solver's host-clock ms and the kernel's bytes bound;
+     rows), [36,100,100] random and [36,100,100] shaped like distillation's
+     softkd re-pairing (ops/lsa.softkd_like_costs: n_fp 90-99, the 1e6
+     columns, near-ties) against the plain version (equal assignments) and
+     scipy (equal assignments on continuous costs, equal total cost on ties
+     and the softkd case); the plain solver's host-clock ms, the kernel's
+     bytes bound and the dependent steps of the longest problem
+     (lsa_scan_steps); after phase 9, the same for the matcher's real
+     [36,25,100] costs of phase 8's first batch (its fixture's few valid
+     targets per image);
   8. training at full width: fixture data (toist_tpu_torch.data.fixtures)
      through BatchIterator on the batcher.train_buckets canvases, bf16 with
      f32 master weights, batch 6, dropout 0.1, one warm-up step and then an
@@ -74,9 +81,10 @@ Phases, each of which raises on failure (non-zero exit):
      the forward at the serving shapes, and the forward, dK/dV and dQ at
      rate 0 and 0.1 at the training shapes, in bf16 and, at the encoder
      shapes, in f32 (the scalar route); what rate 0.1 adds to each kernel;
-     the LSA kernel on phase 7's costs. Beside each, the kernel's bound
-     and, for the forward, the exp2 floor of the card's special-function
-     units.
+     the LSA kernel on phase 7's continuous, 100x100, softkd and real
+     matcher costs, with the steps of the longest problem and the ns per
+     step. Beside each, the kernel's bound and, for the forward, the exp2
+     floor of the card's special-function units.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -215,15 +223,18 @@ def ptxas_report(text):
             name = base.group(1) if base else mangled
             args = re.search(r"kernelI(\w*?)Li(\d+)E(?:Lb([01])E)?",
                              mangled)
-            if args:   # <typename T, int HD>, or <int HD, bool DROP> (bf16)
+            if name.startswith("lsa") and args:   # <int K>, 0: shared memory
+                name += f"<K={args.group(2)}>"
+            elif args:   # <typename T, int HD>, or <int HD, bool DROP> (bf16)
                 dt = {"f": "f32,", "": "bf16,"}.get(args.group(1), "bf16,")
                 drop = {"1": ",dropout", "0": ",no dropout"}.get(
                     args.group(3), "")
                 name += f"<{dt}{args.group(2)}{drop}>"
             out[name] = {}
         elif name and "bytes spill stores" in line:
-            out[name]["spill_store_bytes"] = int(
-                re.search(r"(\d+) bytes spill stores", line).group(1))
+            for kind in ("store", "load"):
+                out[name][f"spill_{kind}_bytes"] = int(
+                    re.search(rf"(\d+) bytes spill {kind}s", line).group(1))
         elif name and "Used" in line and "registers" in line:
             out[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
@@ -252,6 +263,12 @@ def phase_build():
     if secs.get("flash_attn_fwd_tc.cu") and not any(
             n.startswith("flash_fwd_tc_kernel") for n in ptxas):
         raise AssertionError("no ptxas report of flash_fwd_tc_kernel")
+    lsa_rep = {n: r for n, r in ptxas.items() if n.startswith("lsa_kernel")}
+    if secs.get(lsa.KERNEL_SOURCE) and (len(lsa_rep) != 5 or any(
+            r.get("spill_store_bytes", 1) or r.get("spill_load_bytes", 1)
+            for r in lsa_rep.values())):
+        raise AssertionError(f"LSA kernel: five instantiations without "
+                             f"spills expected, ptxas says {lsa_rep}")
     return secs, ptxas
 
 
@@ -653,14 +670,66 @@ def _fwd_bwd(fn, q, k, v, w):
     return (o.detach(),) + grads
 
 
-def phase_lsa():
-    """Kernel 4 against the plain version and scipy."""
+def lsa_case(name, cost, n, scipy_check, timed=None):
+    """One LSA case: the kernel against the plain version (equal
+    assignments) and scipy (scipy_check "assignment": equal assignments;
+    "total": equal total cost, rtol 1e-6 and atol 1e-5; None: not checked).
+    For a case that phase 10 times (its inputs go into ``timed``), also the
+    bytes bound, the plain solver's host-clock ms and the dependent steps of
+    the longest problem."""
     import numpy as np
     import torch
     from scipy.optimize import linear_sum_assignment
 
-    from toist_tpu_torch.ops.lsa import (solve_lsa_batch,
+    from toist_tpu_torch.ops.lsa import (lsa_scan_steps, solve_lsa_batch,
                                          solve_lsa_batch_plain)
+
+    c_cpu, n_cpu = torch.from_numpy(cost), torch.from_numpy(n)
+    c_gpu, n_gpu = c_cpu.cuda(), n_cpu.cuda()
+    got = solve_lsa_batch(c_gpu, n_gpu).cpu().numpy()
+    want = solve_lsa_batch_plain(c_cpu, n_cpu).numpy()
+    mismatches = int((got != want).any(axis=1).sum())
+    scipy_bad = 0
+    for b in range(cost.shape[0]):
+        rows, cols = linear_sum_assignment(
+            np.where(np.isfinite(cost[b, :n[b]]), cost[b, :n[b]], 1e30))
+        if scipy_check == "total":
+            ours = cost[b, np.arange(n[b]), got[b, :n[b]]].sum()
+            scipy_bad += not np.isclose(ours, cost[b, rows, cols].sum(),
+                                        rtol=1e-6, atol=1e-5)
+        elif scipy_check == "assignment":
+            scipy_bad += not np.array_equal(got[b, :n[b]], cols)
+        scipy_bad += not (got[b, n[b]:] == -1).all()
+    case = {"case": name, "shape": list(cost.shape),
+            "n_rows": [int(n.min()), int(n.max())],
+            "problems_differing_from_plain": mismatches,
+            "scipy_check": scipy_check,
+            "problems_differing_from_scipy": int(scipy_bad)}
+    if timed is not None:
+        timed[name] = (c_gpu, n_gpu)       # device ms in phase 10
+        # Bytes bound: the costs and counts read once, the assignment
+        # written once.
+        case["bound_ms"] = (c_gpu.nbytes + n_gpu.nbytes + got.nbytes) \
+            / PEAK_BYTES_S * 1e3
+        # The plain solver runs on the host: host-clock ms, copies
+        # included.
+        t0 = time.perf_counter()
+        for _ in range(5):
+            solve_lsa_batch_plain(c_gpu, n_gpu)
+        case["plain_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        # Problems run concurrently: the longest chain sets the time.
+        case["steps_longest"] = int(lsa_scan_steps(c_cpu, n_cpu).max())
+    log(f"[lsa] {json.dumps(case)}")
+    if mismatches or scipy_bad:
+        raise AssertionError(f"LSA kernel disagrees: {case}")
+    return case
+
+
+def phase_lsa():
+    """Kernel 4 against the plain version and scipy."""
+    import numpy as np
+
+    from toist_tpu_torch.ops.lsa import softkd_like_costs
 
     rng = np.random.default_rng(SEED)
     L_B, T = 6 * TRAIN_B, 25
@@ -670,50 +739,18 @@ def phase_lsa():
     bad[0, 3] = np.nan
     bad[1] = np.inf
     n_pad = rng.integers(0, T + 1, L_B).astype(np.int32)
-    cases = [("continuous", cont, np.full(L_B, T, np.int32)),
-             ("padded", cont, n_pad), ("ties", ties, n_pad),
-             ("non_finite", bad, np.full(L_B, T, np.int32)),
-             ("100x100", rng.normal(size=(L_B, 100, 100)).astype(np.float32),
-              rng.integers(60, 101, L_B).astype(np.int32))]
-    out, timed = [], {}
-    for name, cost, n in cases:
-        c_cpu, n_cpu = torch.from_numpy(cost), torch.from_numpy(n)
-        c_gpu, n_gpu = c_cpu.cuda(), n_cpu.cuda()
-        got = solve_lsa_batch(c_gpu, n_gpu).cpu().numpy()
-        want = solve_lsa_batch_plain(c_cpu, n_cpu).numpy()
-        mismatches = int((got != want).any(axis=1).sum())
-        scipy_bad = 0
-        for b in range(L_B):
-            rows, cols = linear_sum_assignment(
-                np.where(np.isfinite(cost[b, :n[b]]), cost[b, :n[b]], 1e30))
-            if name == "ties":
-                ours = cost[b, np.arange(n[b]), got[b, :n[b]]].sum()
-                scipy_bad += not np.isclose(ours, cost[b, rows, cols].sum(),
-                                            rtol=1e-6, atol=1e-5)
-            elif name != "non_finite":
-                scipy_bad += not np.array_equal(got[b, :n[b]], cols)
-            scipy_bad += not (got[b, n[b]:] == -1).all()
-        case = {"case": name, "shape": list(cost.shape),
-                "problems_differing_from_plain": mismatches,
-                "problems_differing_from_scipy": int(scipy_bad)}
-        if name in ("continuous", "100x100"):
-            timed[name] = (c_gpu, n_gpu)       # device ms in phase 10
-            # Bytes bound: the costs and counts read once, the assignment
-            # written once.
-            out_bytes = got.nbytes
-            case["bound_ms"] = (c_gpu.nbytes + n_gpu.nbytes + out_bytes) \
-                / PEAK_BYTES_S * 1e3
-            # The plain solver runs on the host: host-clock ms, copies
-            # included.
-            t0 = time.perf_counter()
-            for _ in range(5):
-                solve_lsa_batch_plain(c_gpu, n_gpu)
-            case["plain_ms"] = (time.perf_counter() - t0) / 5 * 1e3
-        log(f"[lsa] {json.dumps(case)}")
-        if mismatches or scipy_bad:
-            raise AssertionError(f"LSA kernel disagrees: {case}")
-        out.append(case)
-    return out, timed
+    full = np.full(L_B, T, np.int32)
+    big = rng.normal(size=(L_B, 100, 100)).astype(np.float32)
+    n_big = rng.integers(60, 101, L_B).astype(np.int32)
+    timed = {}
+    cases = [lsa_case("continuous", cont, full, "assignment", timed),
+             lsa_case("padded", cont, n_pad, "assignment"),
+             lsa_case("ties", ties, n_pad, "total"),
+             lsa_case("non_finite", bad, full, None),
+             lsa_case("100x100", big, n_big, "assignment", timed),
+             lsa_case("softkd", *softkd_like_costs(SEED, L_B, NUM_QUERIES),
+                      "total", timed)]
+    return cases, timed
 
 
 def _fixture_config(root):
@@ -920,14 +957,15 @@ def _profile_steps(smi, step, state, it, canvas, n=3):
 
 def phase_train_kernel_vs_plain(state_dict, batch):
     """One f32 training step's matching, losses and gradients with the
-    kernels and without them."""
+    kernels and without them. Also returns the LSA problem of that step's
+    matching (cost [L*B, T, Q], n_rows [L*B])."""
     import torch
 
     from toist_tpu_torch.config import Config
     from toist_tpu_torch.models.layers import set_fused_attention
     from toist_tpu_torch.models.toist import TOIST
-    from toist_tpu_torch.ops.matching import hungarian_match_levels, \
-        match_costs
+    from toist_tpu_torch.ops.matching import assignment_problem, \
+        hungarian_match_levels, match_costs
     from toist_tpu_torch.train import criterion as crit
     from toist_tpu_torch.train.optim import freeze_parameters, label_params
     from toist_tpu_torch.train.step import TRAIN_KEYS, batch_to_device
@@ -1046,7 +1084,8 @@ def phase_train_kernel_vs_plain(state_dict, batch):
             or set(gk) != set(gp) or with_kernels != want
             or any(without.values())):
         raise AssertionError(f"training step kernels vs plain: {res}")
-    return res
+    cost_t, n_valid, _ = assignment_problem(cost, bv.repeat(L, 1).cpu())
+    return res, (cost_t.numpy(), n_valid.numpy())
 
 
 def _attention_times(q, k, v, mask, w, rate, backward):
@@ -1103,12 +1142,13 @@ def _attention_times(q, k, v, mask, w, rate, backward):
     return t
 
 
-def phase_times(lsa_inputs):
+def phase_times(smi, lsa_cases, lsa_inputs):
     """Phase 10: device ms per call (device_ms) of every hand-written
     kernel, of its plain version and of the library call: the attention
     kernels at the serving shapes (forward) and the training shapes
     (forward, dK/dV, dQ at rate 0 and 0.1), in bf16 and, at the encoder
-    shapes, in f32; the LSA kernel on phase 7's costs."""
+    shapes, in f32; the LSA kernel on phase 7's timed costs, with the
+    steps of the longest problem and the ns per step."""
     import torch
 
     from toist_tpu_torch.ops.lsa import solve_lsa_batch
@@ -1153,9 +1193,18 @@ def phase_times(lsa_inputs):
                     f"{json.dumps(per['dropout_overhead'])} of each "
                     f"kernel's rate-0 time")
             out[name][dt_name] = per
-    out["lsa"] = {case: device_ms(lambda: solve_lsa_batch(c, n))
-                  for case, (c, n) in lsa_inputs.items()}
-    log(f"[times] lsa {json.dumps(out['lsa'])}")
+    out["lsa"] = {}
+    for case in lsa_cases:
+        if case["case"] not in lsa_inputs:
+            continue
+        c, n = lsa_inputs[case["case"]]
+        ms = device_ms(lambda: solve_lsa_batch(c, n))
+        out["lsa"][case["case"]] = t = {
+            "shape": case["shape"], "ms": ms, "bound_ms": case["bound_ms"],
+            "bound_by": "bytes", "plain_ms": case["plain_ms"],
+            "steps_longest": case["steps_longest"],
+            "ns_per_step": ms * 1e6 / max(case["steps_longest"], 1)}
+        log(f"[times] lsa {case['case']} {json.dumps(t)} | {smi}")
     return out
 
 
@@ -1176,15 +1225,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         train, train_batch = phase_train(smi, state_dict, root)
         torch.cuda.empty_cache()
-        train_f32 = phase_train_kernel_vs_plain(state_dict, train_batch)
-    times = phase_times(lsa_inputs)
+        train_f32, real = phase_train_kernel_vs_plain(state_dict,
+                                                      train_batch)
+    lsa_cases.append(lsa_case("real_matcher", *real, "total", lsa_inputs))
+    times = phase_times(smi, lsa_cases, lsa_inputs)
 
     serve = times["serving_encoder"]["bfloat16"][0.0]
     serve32 = times["serving_encoder"]["float32"][0.0]
     cross = times["serving_decoder_cross"]["bfloat16"][0.0]
     enc = times["train_encoder"]["bfloat16"]
     enc32 = times["train_encoder"]["float32"][0.0]
-    lsa_main = next(c for c in lsa_cases if c["case"] == "continuous")
+    lsa_main = times["lsa"]["continuous"]
     tl = train["launches"]
     bf16_attn = [c for c in attn if c["dtype"] == "bfloat16"]
     f32_route = "toist_tpu_torch/csrc/flash_attn_bwd.cu"
@@ -1282,11 +1333,15 @@ def main() -> int:
         "replaces": "toist_tpu/ops/lsa_pallas.py:35",
         "launches": tl["lsa"],
         "max_abs_err": 0,
-        "ms": times["lsa"]["continuous"],
+        "ms": lsa_main["ms"],
         "plain_ms": lsa_main["plain_ms"],
         "bound_ms": lsa_main["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,          # no PyTorch call solves an assignment
+        "steps_longest": lsa_main["steps_longest"],
+        "ns_per_step": lsa_main["ns_per_step"],
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith("lsa")},
+        "shapes": times["lsa"],
         "cases": lsa_cases,
     }], "train": {k: train[k] for k in ("launches", "peak_gib", "img_s",
                                         "profile")}}

@@ -9,8 +9,11 @@ largest error over the tensor's max abs value: f32 5e-5 (sums over up to
 300 rows in another order); bf16 (the tensor-core route) 1.5e-2, where the
 kernels accumulate in f32 and round P~, dS and the outputs to bf16 as
 FlashAttention-2 does, so a kernel that is 5% off fails. The same seed
-reproduces them bit for bit. LSA: exact assignments on continuous costs and ties (the
-kernel and the plain version run the same algorithm in the same f32 order).
+reproduces them bit for bit. LSA: exact assignments on continuous costs and
+ties (the kernel and the plain version run the same algorithm in the same f32
+order), at the matcher and softkd shapes and at the edges of the kernel's
+layout (many problems per CTA, C not a multiple of 4 or 32, R = 1, signed
+zeros, more than 128 columns).
 """
 import numpy as np
 import pytest
@@ -24,7 +27,8 @@ from toist_tpu_torch.ops.flash_attention import (FlashAttention,
                                                  dropout_keep_mask,
                                                  dropout_keep_mask_plain,
                                                  flash_attention)
-from toist_tpu_torch.ops.lsa import solve_lsa_batch, solve_lsa_batch_plain
+from toist_tpu_torch.ops.lsa import (softkd_like_costs, solve_lsa_batch,
+                                     solve_lsa_batch_plain)
 
 pytestmark = pytest.mark.cuda
 REL = {torch.float32: 5e-5, torch.bfloat16: 1.5e-2}   # x max abs
@@ -195,7 +199,16 @@ def test_module_dropout_draws_from_the_generator(cuda):
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
 
 
-def _lsa_cases():
+LSA_CASES = ("continuous", "padded", "ties", "non_finite", "100x100",
+             "softkd", "b300", "128x128", "40x25x37", "r1", "signed_zero_ties",
+             "c200")
+
+
+def _lsa_case(name):
+    """(cost, n_rows) of one LSA case. b300: more problems than SMs, so
+    several per CTA and more than one wave; 40x25x37: C neither a multiple
+    of 32 nor of 4 (scalar loads); signed_zero_ties: -0.0 and +0.0 tie;
+    c200: more than 128 columns (column state in shared memory)."""
     rng = np.random.default_rng(0)
     cont = rng.normal(size=(36, 25, 100)).astype(np.float32)
     ties = np.round(rng.uniform(size=(36, 25, 100)) * 3).astype(np.float32)
@@ -204,15 +217,30 @@ def _lsa_cases():
     nan[1] = np.inf
     big = rng.normal(size=(36, 100, 100)).astype(np.float32)
     n25 = rng.integers(0, 26, 36).astype(np.int32)
-    return [("continuous", cont, np.full(36, 25, np.int32)),
-            ("padded", cont, n25), ("ties", ties, n25),
-            ("non_finite", nan, np.full(36, 25, np.int32)),
-            ("100x100", big, rng.integers(60, 101, 36).astype(np.int32))]
+    if name in ("continuous", "padded", "ties", "non_finite", "100x100"):
+        return {"continuous": (cont, np.full(36, 25, np.int32)),
+                "padded": (cont, n25), "ties": (ties, n25),
+                "non_finite": (nan, np.full(36, 25, np.int32)),
+                "100x100": (big, rng.integers(60, 101, 36).astype(np.int32))
+                }[name]
+    if name == "softkd":
+        return softkd_like_costs(5, 36)
+    shape, n_range = {"b300": ((300, 25, 100), (0, 26)),
+                      "128x128": ((16, 128, 128), (100, 129)),
+                      "40x25x37": ((40, 25, 37), (0, 26)),
+                      "r1": ((16, 1, 50), (0, 2)),
+                      "signed_zero_ties": ((36, 20, 40), (10, 21)),
+                      "c200": ((8, 60, 200), (40, 61))}[name]
+    if name == "signed_zero_ties":
+        cost = rng.choice(np.array([0.0, -0.0, 1.0], np.float32), shape)
+    else:
+        cost = rng.normal(size=shape).astype(np.float32)
+    return cost, rng.integers(*n_range, shape[0]).astype(np.int32)
 
 
-@pytest.mark.parametrize("case", range(5))
-def test_lsa_kernel_matches_plain(cuda, case):
-    name, cost, n = _lsa_cases()[case]
+@pytest.mark.parametrize("name", LSA_CASES)
+def test_lsa_kernel_matches_plain(cuda, name):
+    cost, n = _lsa_case(name)
     before = solve_lsa_batch.launches
     got = solve_lsa_batch(torch.from_numpy(cost).to(cuda),
                           torch.from_numpy(n).to(cuda))
@@ -221,7 +249,8 @@ def test_lsa_kernel_matches_plain(cuda, case):
     want = solve_lsa_batch_plain(torch.from_numpy(cost), torch.from_numpy(n))
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
                                   err_msg=name)
-    if name in ("continuous", "padded", "100x100"):
+    if name in ("continuous", "padded", "100x100", "b300", "128x128",
+                "40x25x37", "r1", "c200"):
         for b in range(cost.shape[0]):
             rows, cols = linear_sum_assignment(cost[b, :n[b]])
             np.testing.assert_array_equal(got[b, :n[b]].cpu().numpy(), cols)

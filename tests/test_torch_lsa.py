@@ -7,7 +7,9 @@ included. scipy, the C++ ``lsa_solve`` of ``toist_tpu/native`` and the
 Pallas kernel (interpret mode) are further oracles: equal assignments on
 continuous costs, equal total cost (rtol 1e-5, as tests/test_lsa.py) where
 ties allow several optima. The cases are those of tests/test_lsa.py and
-tests/test_lsa_pallas.py.
+tests/test_lsa_pallas.py, plus problems shaped like distillation's softkd
+re-pairing ([B, 100, 100], n_fp 90-99, 1e6 columns, near-ties). The step
+counter ``lsa_scan_steps`` is held to hand-counted problems.
 """
 import ctypes
 
@@ -20,7 +22,8 @@ from scipy.optimize import linear_sum_assignment
 from toist_tpu import native
 from toist_tpu.ops.lsa import solve_lsa, solve_lsa_batch as jax_batch
 from toist_tpu.ops.lsa_pallas import solve_lsa_batch_pallas
-from toist_tpu_torch.ops.lsa import solve_lsa_batch
+from toist_tpu_torch.ops.lsa import (lsa_scan_steps, softkd_like_costs,
+                                     solve_lsa_batch)
 
 
 def _port(cost, n):
@@ -153,3 +156,47 @@ def test_wrapper_checks_and_counts():
     before = solve_lsa_batch.launches
     solve_lsa_batch(torch.zeros(2, 3, 4), torch.ones(2, dtype=torch.int32))
     assert solve_lsa_batch.launches == before == 0   # no kernel on the CPU
+
+
+def test_softkd_shaped_costs_equal_jax_and_scipy():
+    cost, n = softkd_like_costs(11, 4)
+    assert cost.shape == (4, 100, 100) and ((90 <= n) & (n < 100)).all()
+    past = np.arange(100)[None, None, :] >= n[:, None, None]
+    assert (cost[np.broadcast_to(past, cost.shape)] == 1e6).all()
+    got = _port(cost, n)
+    np.testing.assert_array_equal(got, _jax(cost, n))
+    for b in range(4):
+        assert (got[b, n[b]:] == -1).all() and (got[b, :n[b]] < n[b]).all()
+        rows, cols = linear_sum_assignment(cost[b, :n[b]])
+        np.testing.assert_allclose(cost[b, rows, got[b, :n[b]]].sum(),
+                                   cost[b, rows, cols].sum(), rtol=1e-5)
+
+
+def _steps(cost, n):
+    return lsa_scan_steps(torch.from_numpy(np.asarray(cost, np.float32)),
+                          torch.from_numpy(np.asarray(n, np.int32)))
+
+
+def test_scan_steps_of_hand_counted_problems():
+    # Every row's arg-min is its own column: the warm start matches all.
+    diag = (1 - np.eye(6, dtype=np.float32))[None]
+    np.testing.assert_array_equal(_steps(diag, [6]), [0])
+    # Both rows claim column 0 and row 0 keeps it. Row 1's scan reaches
+    # column 0 (owned by row 0), then from row 0 the free column 1: two
+    # scan steps; the walk flips both columns: two hops.
+    two = np.array([[[0, 1], [0, 2]]], np.float32)
+    np.testing.assert_array_equal(_port(two, [2]), [[1, 0]])
+    np.testing.assert_array_equal(_steps(two, [2]), [4])
+    # Padded rows take no steps.
+    np.testing.assert_array_equal(_steps(np.concatenate([two, two]),
+                                         [2, 1]), [4, 0])
+
+
+def test_scan_steps_follow_the_problem_not_its_place_in_the_batch():
+    rng = np.random.default_rng(9)
+    cost = rng.normal(size=(10, 25, 100)).astype(np.float32)
+    n = rng.integers(0, 26, 10).astype(np.int32)
+    steps = _steps(cost, n)
+    assert steps.max() > 0
+    perm = rng.permutation(10)
+    np.testing.assert_array_equal(_steps(cost[perm], n[perm]), steps[perm])

@@ -14,8 +14,11 @@ kernel's ``_CUT`` reachability test.
 
 ``solve_lsa_batch`` dispatches on where its inputs lie: CPU tensors go to
 ``solve_lsa_batch_plain`` (numpy, f32 arithmetic in lsa.py's order); CUDA
-tensors launch the kernel or raise. ``solve_lsa_batch.launches`` counts
-kernel launches.
+tensors launch the kernel (one warp per problem) or raise.
+``solve_lsa_batch.launches`` counts kernel launches. ``lsa_scan_steps``
+counts the dependent steps of each problem's solve, the quantity that sets
+the kernel's time; ``softkd_like_costs`` makes problems shaped like
+distillation's softkd re-pairing for tests and timing.
 """
 from __future__ import annotations
 
@@ -24,14 +27,18 @@ import ctypes
 import numpy as np
 import torch
 
+from toist_tpu_torch.ops import box_ops
+
 KERNEL_SOURCE = "lsa.cu"
 _BIG = np.float32(1e30)   # tentative distance of an unreached column
 _CUT = np.float32(5e29)   # minval >= _CUT: no unscanned column is reachable
 MAX_SMEM_BYTES = 227 * 1024
 
 
-def _solve_one(cost: np.ndarray, n: int) -> np.ndarray:
-    """One [R, C] f32 problem, first ``n`` rows -> col4row [R] int32."""
+def _solve_one(cost: np.ndarray, n: int) -> tuple:
+    """One [R, C] f32 problem, first ``n`` rows -> (col4row [R] int32, the
+    number of dependent steps: scan steps of every augmenting path plus the
+    hops of every path walk)."""
     R, C = cost.shape
     finite = np.isfinite(cost)
     big = (np.where(finite, np.abs(cost), np.float32(0)).max()
@@ -48,6 +55,7 @@ def _solve_one(cost: np.ndarray, n: int) -> np.ndarray:
         row4col[best[r]] = r
     col4row = np.where(valid & (row4col[best] == rows), best, -1)
 
+    steps = 0
     for cur in range(n):
         if col4row[cur] >= 0:
             continue
@@ -57,6 +65,7 @@ def _solve_one(cost: np.ndarray, n: int) -> np.ndarray:
         sr = np.zeros(R, bool)
         i, sink, minval = cur, -1, np.float32(0)
         while sink < 0 and minval < _CUT:
+            steps += 1
             sr[i] = True
             r = minval + cost[i] - u[i] - v
             better = ~sc & (r < shortest)
@@ -77,6 +86,7 @@ def _solve_one(cost: np.ndarray, n: int) -> np.ndarray:
         v[sc] = v[sc] - (minval - shortest[sc])
         j = sink
         for _ in range(R + 1):
+            steps += 1
             r_ = int(path[j])
             row4col[j] = r_
             prev = int(col4row[r_])
@@ -84,7 +94,7 @@ def _solve_one(cost: np.ndarray, n: int) -> np.ndarray:
             if r_ == cur:
                 break
             j = prev
-    return np.where(valid, col4row, -1).astype(np.int32)
+    return np.where(valid, col4row, -1).astype(np.int32), steps
 
 
 def solve_lsa_batch_plain(cost: torch.Tensor, n_rows: torch.Tensor
@@ -94,8 +104,66 @@ def solve_lsa_batch_plain(cost: torch.Tensor, n_rows: torch.Tensor
     device."""
     c = cost.detach().to("cpu", torch.float32).numpy()
     n = n_rows.detach().cpu().numpy()
-    out = np.stack([_solve_one(c[b], int(n[b])) for b in range(c.shape[0])])
+    out = np.stack([_solve_one(c[b], int(n[b]))[0]
+                    for b in range(c.shape[0])])
     return torch.from_numpy(out).to(cost.device)
+
+
+def lsa_scan_steps(cost: torch.Tensor, n_rows: torch.Tensor) -> np.ndarray:
+    """The dependent steps of each problem's solve, [B] int64: the scan
+    steps (one relaxation and arg-min each) of every augmenting path plus
+    the hops of every path walk, counted by the plain version's own loop.
+    A batch's problems run concurrently on the card, so the largest count
+    sets the kernel's time."""
+    c = cost.detach().to("cpu", torch.float32).numpy()
+    n = n_rows.detach().cpu().numpy()
+    return np.array([_solve_one(c[b], int(n[b]))[1]
+                     for b in range(c.shape[0])], np.int64)
+
+
+def softkd_like_costs(seed: int, batch: int, queries: int = 100,
+                      n_fp: tuple = (90, 100)) -> tuple:
+    """A batch of assignment problems shaped like distillation's softkd
+    false-positive re-pairing (toist_tpu/train/criterion.py
+    ``_softkd_per_image``), made with numpy from ``seed``: rows are the
+    student's (sth) unmatched queries, columns the teacher's (noun); cost =
+    KL(noun || sth) of the binary object probabilities + L1 - GIoU of the
+    boxes; columns at or past ``n_fp`` cost 1e6 and rows past it are
+    padding. The teacher's queries cluster on a few objects and the
+    student's are a small perturbation of them in another order, so
+    near-duplicate queries make near-ties, as a trained detector's do.
+    -> (cost [batch, queries, queries] f32, n_rows [batch] int32 drawn
+    from [n_fp[0], n_fp[1]))."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, queries)
+    objects = np.concatenate([rng.uniform(0.2, 0.8, (batch, 8, 2)),
+                              rng.uniform(0.05, 0.4, (batch, 8, 2))], -1)
+    pick = rng.integers(0, 8, shape)
+    noun_box = np.take_along_axis(objects, pick[..., None], 1) \
+        + rng.normal(0, 0.01, shape + (4,))
+    # The two streams compact their unmatched queries independently, so a
+    # student query sits at another index than its teacher query.
+    perm = np.argsort(rng.random(shape), -1)
+    sth_box = np.take_along_axis(noun_box, perm[..., None], 1) \
+        + rng.normal(0, 0.01, shape + (4,))
+    noun_box[..., 2:] = np.abs(noun_box[..., 2:]) + 1e-3
+    sth_box[..., 2:] = np.abs(sth_box[..., 2:]) + 1e-3
+    p_noun = rng.uniform(0.01, 0.99, shape)
+    p_sth = np.clip(np.take_along_axis(p_noun, perm, 1)
+                    + rng.normal(0, 0.02, shape), 1e-3, 1 - 1e-3)
+    bi_noun = np.stack([p_noun, 1 - p_noun], -1)
+    bi_sth = np.stack([p_sth, 1 - p_sth], -1)
+    kl = np.sum(bi_noun[:, None, :, :]
+                * (np.log(bi_noun[:, None, :, :] + 1e-10)
+                   - np.log(bi_sth[:, :, None, :] + 1e-10)), -1)
+    l1 = np.abs(sth_box[:, :, None, :] - noun_box[:, None, :, :]).sum(-1)
+    xyxy = [box_ops.box_cxcywh_to_xyxy(torch.from_numpy(x))
+            for x in (sth_box, noun_box)]
+    cost = kl + l1 - box_ops.generalized_box_iou(*xyxy).numpy()
+    n = rng.integers(n_fp[0], n_fp[1], batch).astype(np.int32)
+    cost = np.where(np.arange(queries)[None, None, :] >= n[:, None, None],
+                    1e6, cost)
+    return cost.astype(np.float32), n
 
 
 def _check_inputs(cost: torch.Tensor, n_rows: torch.Tensor) -> None:
@@ -111,8 +179,13 @@ def _check_inputs(cost: torch.Tensor, n_rows: torch.Tensor) -> None:
 
 
 def _smem_bytes(R: int, C: int) -> int:
-    """The kernel's shared memory (csrc/lsa.cu smem_bytes)."""
-    return 4 * (R * C + 2 * C + R) + 4 * (3 * C + 3 * R)
+    """One problem's shared memory (csrc/lsa.cu problem_words): cost, u,
+    col4row, row4col and path, plus v, shortest and the scanned flags past
+    128 columns, and 128 words the scan may read past them, in 16-byte
+    units."""
+    nk = (C + 31) // 32
+    words = R * C + 2 * R + 2 * C + 128 + (3 * 32 * nk if nk > 4 else 0)
+    return 4 * ((words + 3) // 4 * 4)
 
 
 def _lib():

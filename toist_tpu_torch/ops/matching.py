@@ -34,6 +34,20 @@ def match_costs(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     return cost_bbox * c_bbox + cost_class * c_class + cost_giou * c_giou
 
 
+def assignment_problem(cost: torch.Tensor, tgt_valid: torch.Tensor
+                       ) -> tuple:
+    """The solver's input for matching costs [B, Q, T] and tgt_valid [B, T]:
+    (cost [B, T, Q] with the valid targets first, their count [B] int32,
+    the order [B, T] that put them first). Stable, so the solver's "first
+    n rows" contract holds for any validity mask (matching.py:139-151)."""
+    n_valid = tgt_valid.sum(-1, dtype=torch.int32)
+    order = torch.sort((~tgt_valid).to(torch.uint8), dim=-1,
+                       stable=True).indices
+    cost_t = torch.gather(cost.transpose(1, 2), 1,
+                          order[:, :, None].expand(-1, -1, cost.shape[1]))
+    return cost_t, n_valid, order
+
+
 @torch.no_grad()
 def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                     tgt_boxes: torch.Tensor, positive_map: torch.Tensor,
@@ -45,13 +59,7 @@ def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     [B, T] int32. One assignment solve for the whole batch."""
     cost = match_costs(pred_logits, pred_boxes, tgt_boxes, positive_map,
                        cost_class, cost_bbox, cost_giou)
-    n_valid = tgt_valid.sum(-1, dtype=torch.int32)                  # [B]
-    # Valid targets first (stable), so the solver's "first n rows" contract
-    # holds for any validity mask (matching.py:139-151).
-    order = torch.sort((~tgt_valid).to(torch.uint8), dim=-1,
-                       stable=True).indices                         # [B, T]
-    cost_t = torch.gather(cost.transpose(1, 2), 1,
-                          order[:, :, None].expand(-1, -1, cost.shape[1]))
+    cost_t, n_valid, order = assignment_problem(cost, tgt_valid)
     assigned = solve_lsa_batch(cost_t, n_valid)                     # [B, T]
     tgt2query = torch.full_like(assigned, -1)
     tgt2query.scatter_(1, order, assigned)
