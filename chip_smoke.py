@@ -84,7 +84,23 @@ Phases, each of which raises on failure (non-zero exit):
      the LSA kernel on phase 7's continuous, 100x100, softkd and real
      matcher costs, with the steps of the longest problem and the ns per
      step. Beside each, the kernel's bound and, for the forward, the exp2
-     floor of the card's special-function units.
+     floor of the card's special-function units;
+ 11. the user's entry point: toist_tpu_torch.main from parse_args at full
+     width in bf16 on the fixture (2 tasks x 30 images per split), the
+     seeded weights given through --load (word embeddings cut to the
+     fixture tokenizer's vocabulary). Run 1 trains one epoch of batch 6,
+     writes checkpoint, evaluates the EMA (batch 8, eval_skip 1, the
+     800x1344 canvas) and writes BEST_checkpoint; run 2 is --eval --resume
+     <out>/checkpoint. Every eval forward launches the tensor-core forward
+     12 times, the f32 route never, and 1 LSA (the eval losses); every
+     training step launches what phase 8 counts; log.jsonl holds
+     train_step, epoch and eval records; the mean AP@0.5 is finite; the
+     resumed masters, AdamW moments and step counts, EMA and step equal run
+     1's bit for bit; run 2's first eval batch's detections lie within 1.5e-2
+     of the max abs of run 1's. It prints eval img/s (host clock from the
+     second batch to evaluate's return), the mean AP@0.5 of random weights
+     (a smoke value) and each checkpoint's size, host-copy and write
+     seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -1208,6 +1224,251 @@ def phase_times(smi, lsa_cases, lsa_inputs):
     return out
 
 
+class _Hooks:
+    """Wraps what toist_tpu_torch.main calls (its train and eval steps,
+    engine.evaluate, checkpoint.restore) to count each call's kernel
+    launches and keep what phase 11 checks; ``undo`` puts them back."""
+
+    def __init__(self):
+        from toist_tpu_torch import main as pmain
+        from toist_tpu_torch.train import checkpoint as ckpt
+        from toist_tpu_torch.train import engine
+
+        self.undo_list = []
+        self.train, self.evals, self.restored, self.state = [], [], [], None
+        self.first_dets = []
+
+        def patch(obj, name, wrap):
+            self.undo_list.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, wrap(getattr(obj, name)))
+
+        def counted_train(make):
+            def make_step(cfg, weight_dict):
+                step = make(cfg, weight_dict)
+
+                def train_step(state, batch):
+                    before = read_counts()
+                    state, scalars = step(state, batch)
+                    after = read_counts()
+                    self.train.append({k: after[k] - before[k]
+                                       for k in after})
+                    self.state = state
+                    return state, scalars
+                return train_step
+            return make_step
+
+        def counted_eval(make):
+            def make_step(model, cfg, weight_dict):
+                step = make(model, cfg, weight_dict)
+
+                def eval_step(batch):
+                    run = self.evals[-1]
+                    run["calls"].append(time.perf_counter())
+                    before = read_counts()
+                    res = step(batch)
+                    after = read_counts()
+                    run["parts"]["eval_step"] = run["parts"].get(
+                        "eval_step", 0.0) + (time.perf_counter()
+                                             - run["calls"][-1])
+                    run["launches"].append({k: after[k] - before[k]
+                                            for k in after})
+                    run["images"].append(int(batch["sample_valid"].sum()))
+                    if len(run["calls"]) == 1:      # first batch: kept
+                        self.first_dets.append({
+                            k: res["post"][k].clone()
+                            for k in ("scores", "boxes")})
+                    return res
+                return eval_step
+            return make_step
+
+        def timed_evaluate(evaluate):
+            def run(*args, **kwargs):
+                self.evals.append({"calls": [], "launches": [],
+                                   "images": [], "parts": {}})
+                start = time.perf_counter()
+                out = evaluate(*args, **kwargs)
+                self.evals[-1]["end"] = end = time.perf_counter()
+                parts = self.evals[-1]["parts"]
+                parts["other"] = end - start - sum(parts.values())
+                return out
+            return run
+
+        def timed(part):
+            # Host seconds of one part of evaluate, summed over its calls.
+            def wrap(fn):
+                def run(*args, **kwargs):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        if self.evals:
+                            parts = self.evals[-1]["parts"]
+                            parts[part] = parts.get(part, 0.0) + (
+                                time.perf_counter() - t)
+                return run
+            return wrap
+
+        def kept_restore(restore):
+            def run(*args, **kwargs):
+                state, epoch = restore(*args, **kwargs)
+                self.restored.append(state)
+                return state, epoch
+            return run
+
+        patch(pmain, "make_train_step", counted_train)
+        patch(pmain, "make_eval_step", counted_eval)
+        patch(engine, "evaluate", timed_evaluate)
+        patch(ckpt, "restore", kept_restore)
+        # Where evaluate's host time goes: the eval step (the forward's
+        # launches, the criterion and its matching), the wait for each
+        # batch's copies (the device's time beyond what the next batch
+        # overlaps), TaskEvaluator.update and .summarize (COCO scoring);
+        # "other" is the rest, mostly the wait for the loader's batches.
+        patch(engine, "_finish_to_host", timed("copy_wait"))
+        patch(engine.TaskEvaluator, "update", timed("update"))
+        patch(engine.TaskEvaluator, "summarize", timed("summarize"))
+
+    def undo(self):
+        for obj, name, orig in reversed(self.undo_list):
+            setattr(obj, name, orig)
+
+
+def _states_equal(a, b):
+    """Names of the parts of two TrainStates that differ (bit for bit)."""
+    bad = []
+    if a.step != b.step:
+        bad.append("step")
+    if any(not (_equal(pa, pb) and _equal(ma, mb))
+           for (pa, ma), (pb, mb) in zip(a.masters, b.masters)):
+        bad.append("masters")
+    if list(a.ema) != list(b.ema) or any(not _equal(a.ema[n], b.ema[n])
+                                         for n in a.ema):
+        bad.append("ema")
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if set(sa["state"]) != set(sb["state"]) or any(
+            not _equal(v, sb["state"][i][k])
+            for i, s in sa["state"].items() for k, v in s.items()):
+        bad.append("optimizer")
+    return bad
+
+
+def _equal(a, b):
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a, b.to(a.device))
+
+
+def phase_main(smi, state_dict, root):
+    """Phase 11: toist_tpu_torch.main, the user's entry point, at full
+    width in bf16 on the fixture, from parse_args: run 1 trains one epoch
+    (batch 6) from the seeded weights given through --load, writes
+    checkpoint, evaluates (batch 8, eval_skip 1) and writes
+    BEST_checkpoint; run 2 is --eval --resume <out>/checkpoint."""
+    import numpy as np
+    import torch
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.train import checkpoint as ckpt
+
+    cfg0 = _fixture_config(root)
+    d = cfg0.data
+    # The fixture's tokenizer has its own vocabulary: the word embeddings
+    # are cut to it, as a user's --load must match the model's vocabulary.
+    vocab = build_tokenizer(cfg0).vocab_size
+    key = "transformer.text_encoder.embeddings.word_embeddings.weight"
+    load = os.path.join(root, "seeded_weights.pth")
+    torch.save({"model": dict(state_dict, **{key: state_dict[key][:vocab]})},
+               load)
+    out = os.path.join(root, "main_out")
+    sets = [f"data.coco_path={d.coco_path}",
+            f"data.refexp_ann_path={d.refexp_ann_path}", "data.tasks=[1,2]",
+            f"data.num_workers={d.num_workers}", "optim.epochs=1",
+            f"optim.train_batch_size={TRAIN_B}", f"optim.valid_batch_size={B}",
+            "optim.eval_skip=1"]
+    argv1 = ["--load", load, "--output-dir", out, "--set", *sets]
+    argv2 = ["--eval", "--resume", os.path.join(out, "checkpoint"),
+             "--set", *sets]
+    hooks = _Hooks()
+    n_saves = len(ckpt.SAVES)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        best = pmain.main(pmain.parse_args(argv1))
+        t1 = time.perf_counter()
+        run1_state = hooks.state
+        m2 = pmain.main(pmain.parse_args(argv2))
+        t2 = time.perf_counter()
+        launches = read_counts()
+    finally:
+        hooks.undo()
+    n_params = sum(p.numel() for p in run1_state.model.parameters())
+    log(f"[main] run 1 (train 1 epoch, checkpoint, eval, best): "
+        f"{t1 - t0:.2f} s; run 2 (--eval --resume): {t2 - t1:.2f} s; "
+        f"{n_params} parameters (vocabulary {vocab}) | {smi}")
+
+    with open(os.path.join(out, "log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    kinds = {r["kind"] for r in records}
+    evals = [r for r in records if r["kind"] == "eval"]
+    want_train = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
+                  "dq": LAUNCHES_PER_FORWARD, "fwd_tc": LAUNCHES_PER_FORWARD,
+                  "dkv_tc": LAUNCHES_PER_FORWARD,
+                  "dq_tc": LAUNCHES_PER_FORWARD,
+                  "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1}
+    # Eval forward: the tensor-core forward only (f32 route = fwd - fwd_tc
+    # = 0), no backward, one LSA for the eval losses.
+    want_eval = {k: 0 for k in want_train}
+    want_eval.update(fwd=LAUNCHES_PER_FORWARD, fwd_tc=LAUNCHES_PER_FORWARD,
+                     lsa=1)
+    bad_train = [c for c in hooks.train if c != want_train]
+    bad_eval = [c for run in hooks.evals for c in run["launches"]
+                if c != want_eval]
+    diff = _states_equal(run1_state, hooks.restored[0]) \
+        if hooks.restored else ["no restore"]
+    det_err = {k: _rel_err(hooks.first_dets[1][k], hooks.first_dets[0][k])
+               for k in ("scores", "boxes")}
+    saves = [dict(s, path=os.path.basename(s["path"]))
+             for s in ckpt.SAVES[n_saves:]]
+    runs = []
+    for run in hooks.evals:
+        # Host clock from the second batch's call to evaluate's return (the
+        # per-task COCO scoring included), the first batch left out.
+        runs.append({"batches": len(run["calls"]),
+                     "images": sum(run["images"]),
+                     "img_s": sum(run["images"][1:])
+                     / (run["end"] - run["calls"][1]),
+                     "host_s_by_part": run["parts"]})
+    res = {"train_steps": len(hooks.train), "eval_runs": runs,
+           "mean_ap50": {"run1": best, "run2": m2,
+                         "log": [r["mean_ap50"] for r in evals]},
+           "checkpoints": saves, "resume_differs": diff,
+           "first_eval_batch_rel_err": det_err, "launches": launches,
+           "log_kinds": sorted(kinds)}
+    log(f"[main] {json.dumps(res)} | {smi}")
+    for s in saves:
+        log(f"[main] {s['path']}: {s['bytes'] / 2**30:.3f} GiB, host copy "
+            f"{s['copy_s']:.2f} s, write {s['write_s']:.2f} s | {smi}")
+    for i, r in enumerate(runs):
+        log(f"[main] run {i + 1} eval: {r['img_s']:.2f} img/s over "
+            f"{r['batches']} batches of {B} (first left out), mean AP@0.5 "
+            f"{(best, m2)[i]:.4f} (random weights: a smoke value) | {smi}")
+    if (len(hooks.train) != 12 or bad_train or len(hooks.evals) != 2
+            or any(r["batches"] != 8 for r in runs) or bad_eval
+            or not {"train_step", "epoch", "eval"} <= kinds
+            or not (np.isfinite(best) and np.isfinite(m2))
+            or diff or max(det_err.values()) > REL_TOL["bfloat16"]
+            or [s["path"] for s in saves] != ["checkpoint",
+                                               "BEST_checkpoint"]):
+        raise AssertionError(
+            f"phase 11 (main): {res}; bad train steps {bad_train[:3]}, "
+            f"bad eval steps {bad_eval[:3]}")
+    res["eval_tc_launches"] = sum(c["fwd_tc"] for run in hooks.evals
+                                  for c in run["launches"])
+    return res
+
+
 def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.getcwd())
@@ -1229,6 +1490,9 @@ def main() -> int:
                                                       train_batch)
     lsa_cases.append(lsa_case("real_matcher", *real, "total", lsa_inputs))
     times = phase_times(smi, lsa_cases, lsa_inputs)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        main_run = phase_main(smi, state_dict, root)
 
     serve = times["serving_encoder"]["bfloat16"][0.0]
     serve32 = times["serving_encoder"]["float32"][0.0]
@@ -1253,6 +1517,8 @@ def main() -> int:
         "replaces": "toist_tpu/ops/flash_attention.py:124",
         "launches": launches["fwd_tc"],
         "train_launches": tl["fwd_tc"],
+        # Phase 11: tensor-core forwards in main's evaluate (both runs).
+        "eval_launches": main_run["eval_tc_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases
                            if c["dtype"] == "bfloat16"),
         "ms": serve["fwd"],
@@ -1344,7 +1610,10 @@ def main() -> int:
         "shapes": times["lsa"],
         "cases": lsa_cases,
     }], "train": {k: train[k] for k in ("launches", "peak_gib", "img_s",
-                                        "profile")}}
+                                        "profile")},
+        "main": {k: main_run[k] for k in ("eval_runs", "mean_ap50",
+                                          "checkpoints", "launches",
+                                          "train_steps")}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

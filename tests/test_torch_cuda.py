@@ -260,3 +260,117 @@ def test_lsa_wrapper_raises(cuda):
     with pytest.raises(ValueError, match="R <= C"):
         solve_lsa_batch(torch.zeros(2, 5, 4, device=cuda),
                         torch.ones(2, dtype=torch.int32, device=cuda))
+
+
+def _tiny_eval_setup(tmp_path, compute_dtype):
+    """The fixture (2 tasks x 4 images) on a 448x640 canvas (14 x 20 image
+    tokens + 48 text: the joint attention reaches the kernel) and the tiny
+    model of tests/test_torch_train.py in ``compute_dtype``."""
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.data.fixtures import generate_fixture
+    from toist_tpu_torch.main import build_specs
+    from toist_tpu_torch.utils.convert import synth_reference_state_dict
+
+    root = generate_fixture(str(tmp_path), num_tasks=2, imgs_per_split=4,
+                            img_size=(96, 128), seed=1)
+    cfg = Config.from_sources(None, {
+        "model": {"backbone": "resnet18-test", "hidden_dim": 64,
+                  "nheads": 4, "dim_feedforward": 128, "enc_layers": 2,
+                  "dec_layers": 2, "num_queries": 20, "text_hidden": 64,
+                  "text_layers": 2, "text_heads": 4, "text_intermediate": 128,
+                  "contrastive_hdim": 16, "compute_dtype": compute_dtype},
+        "data": {"coco_path": root, "refexp_ann_path": f"{root}/annotations",
+                 "tasks": [1, 2], "image_buckets": [[448, 640]],
+                 "max_text_len": 48, "max_boxes": 8, "max_size": 640,
+                 "val_size": 96}})
+    tok = build_tokenizer(cfg)
+    sets = {t: build_task_dataset(cfg.data, t, "val", tok)
+            for t in cfg.data.tasks}
+    sd = synth_reference_state_dict(
+        stage_sizes=(1, 1, 1, 1), enc=2, dec=2, d=64, dim_feedforward=128,
+        text_layers=2, text_hidden=64, text_intermediate=128, num_queries=20,
+        vocab_size=tok.vocab_size, contrastive_hdim=16, with_masks=False,
+        seed=5)
+    return cfg, sets, build_specs(cfg)[1], {
+        k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def test_evaluate_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """evaluate with the tiny model in bf16 on the card against f32 on the
+    CPU: each batch's detections within 1.5e-2 of the CPU's max abs, the
+    tensor-core forward launched, finite stats."""
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.train import engine
+    from toist_tpu_torch.train.criterion import build_weight_dict
+    from toist_tpu_torch.train.step import make_eval_step
+
+    dets = {}
+    for dev, dt in (("cpu", "float32"), ("cuda", "bfloat16")):
+        cfg, sets, spec, sd = _tiny_eval_setup(tmp_path / dev, dt)
+        model = TOIST.from_state_dict(sd, cfg.model, device=dev)
+        step = make_eval_step(model, cfg, build_weight_dict(cfg.loss, False,
+                                                            2))
+        dets[dev] = []
+
+        def recording(batch, step=step, out=dets[dev]):
+            res = step(batch)
+            out.append({k: res["post"][k].float().cpu()
+                        for k in ("scores", "boxes")})
+            return res
+
+        before = flash_attention.fwd_tc_launches
+        res = engine.evaluate(recording, sets, spec, batch_size=3)
+        assert all(np.isfinite(s["bbox"]).all() for s in res.values())
+    # 4 batches x (2 encoder self + 2 decoder cross attentions)
+    assert flash_attention.fwd_tc_launches - before == 4 * 4
+    assert len(dets["cuda"]) == len(dets["cpu"]) == 4
+    for got, want in zip(dets["cuda"], dets["cpu"]):
+        for k in ("scores", "boxes"):
+            _close(got[k], want[k], REL[torch.bfloat16])
+
+
+def test_evaluate_double_buffer_hands_each_batch_its_results(cuda, tmp_path,
+                                                              monkeypatch):
+    """A fake eval step whose boxes encode the image id, computed on the
+    card behind a spin kernel so that each batch's copies are still in
+    flight when the next batch is issued: every update gets its own
+    batch's image ids and boxes."""
+    from toist_tpu_torch.train import engine
+
+    cfg, sets, spec, _ = _tiny_eval_setup(tmp_path, "bfloat16")
+    updates = []
+
+    class Recording(engine.TaskEvaluator):
+        def update(self, image_ids, scores, boxes_xyxy, valid=None,
+                   masks=None):
+            updates.append((np.array(image_ids), np.array(valid),
+                            np.array(scores), np.array(boxes_xyxy)))
+            super().update(image_ids, scores, boxes_xyxy, valid, masks)
+
+    monkeypatch.setattr(engine, "TaskEvaluator", Recording)
+    Q = 7
+
+    def step(batch):
+        ids = torch.from_numpy(batch["image_id"]).to(cuda, torch.float32)
+        torch.cuda._sleep(50_000_000)        # ~25 ms: the copies queue up
+        q = torch.arange(Q, device=cuda, dtype=torch.float32)
+        boxes = torch.stack([ids[:, None] + q, ids[:, None] * 2 + q,
+                             ids[:, None] * 3 + q, ids[:, None] * 4 + q],
+                            -1) * 10.0
+        return {"post": {"scores": (ids[:, None] + q) / 1024.0,
+                         "boxes": boxes},
+                "scalars": {"loss": ids.sum()}}
+
+    engine.evaluate(step, sets, spec, batch_size=3)
+    assert len(updates) == 4
+    seen = [int(i) for ids, valid, _, _ in updates for i in ids[valid]]
+    assert len(seen) == len(set(seen)) == 8          # distinct images
+    q = np.arange(Q)
+    for ids, _, scores, boxes in updates:
+        for r, i in enumerate(ids):
+            np.testing.assert_array_equal(scores[r], (i + q) / 1024.0)
+            for c, m in enumerate((1, 2, 3, 4)):
+                np.testing.assert_array_equal(boxes[r, :, c],
+                                              (i * m + q) * 10.0)

@@ -1,0 +1,177 @@
+"""The port's entry point (toist_tpu_torch.main) on the CPU.
+
+``main`` on the tiny config of tests/test_main_integration.py over the
+fixture, with a frozen-BN backbone warm-started by ``--load`` (seeded
+reference-layout weights) and with a GroupNorm backbone from scratch
+(``init_like_jax``): two epochs write their records, checkpoints and event
+file, every eval gives a finite mean AP@0.5, ``--eval --resume`` (through
+the command line) gives the last in-run eval's per-task stats exactly, and
+``--eval --load`` of the last checkpoint gives its detections bit for bit
+(a random model's AP at this size is mostly 0, so the detections are what
+shows that the same weights came back).
+``parse_args`` gives the JAX ``parse_args``'s config on the same argv; each
+mode that the port does not run yet raises.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from toist_tpu import main as jmain
+from toist_tpu_torch.config import Config
+from toist_tpu_torch.data.captions import build_tokenizer
+from toist_tpu_torch.data.fixtures import generate_fixture
+from toist_tpu_torch.main import main, parse_args
+from toist_tpu_torch.utils.convert import synth_reference_state_dict
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _overrides(root, out, norm):
+    return {
+        "model": {"backbone": "resnet18-test", "hidden_dim": 64, "nheads": 4,
+                  "dim_feedforward": 128, "enc_layers": 2, "dec_layers": 2,
+                  "num_queries": 12, "compute_dtype": "float32",
+                  "contrastive_align_loss": False,
+                  "backbone_norm": norm, "text_hidden": 64,
+                  "text_layers": 2, "text_heads": 4,
+                  "text_intermediate": 128},
+        "data": {"coco_path": root, "refexp_ann_path": root + "/annotations",
+                 "tasks": [1, 2], "image_buckets": [[128, 128]],
+                 "max_text_len": 48, "max_boxes": 8,
+                 "train_scales": [96], "max_size": 128, "val_size": 96,
+                 "num_workers": 1},
+        "optim": {"train_batch_size": 2, "valid_batch_size": 2, "epochs": 2,
+                  "lr": 1e-3, "lr_backbone": 1e-3, "text_encoder_lr": 1e-3,
+                  "ema": True, "eval_skip": 1},
+        "run": {"output_dir": out, "seed": 0, "mesh_shape": [1]},
+    }
+
+
+def _log(out):
+    with open(os.path.join(out, "log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _warm_start(path, cfg):
+    """Seeded reference-layout weights of the tiny model (the fixture
+    tokenizer's vocabulary), box centres spread over the canvas and sizes
+    near the fixture's objects, saved as a reference payload."""
+    sd = synth_reference_state_dict(
+        stage_sizes=(1, 1, 1, 1), enc=2, dec=2, d=64, dim_feedforward=128,
+        text_layers=2, text_hidden=64, text_intermediate=128, num_queries=12,
+        vocab_size=build_tokenizer(cfg).vocab_size, contrastive=False,
+        with_masks=False, seed=3)
+    sd["bbox_embed.layers.2.weight"][:2] *= 2.0
+    sd["bbox_embed.layers.2.bias"][:] = [0.0, 0.0, -0.7, -0.7]
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               path)
+
+
+def _record_detections(monkeypatch):
+    """Each main's eval detections, batch by batch: a list per main."""
+    import toist_tpu_torch.main as pmain
+
+    runs, make = [], pmain.make_eval_step
+
+    def recording(model, cfg, weight_dict):
+        step, dets = make(model, cfg, weight_dict), []
+        runs.append(dets)
+
+        def eval_step(batch):
+            res = step(batch)
+            dets.append({k: res["post"][k].clone() for k in ("scores",
+                                                              "boxes")})
+            return res
+        return eval_step
+
+    monkeypatch.setattr(pmain, "make_eval_step", recording)
+    return runs
+
+
+@pytest.mark.parametrize("norm", ["frozen_bn", "group_norm"])
+def test_main_trains_checkpoints_and_evaluates(tmp_path, monkeypatch, norm):
+    root = generate_fixture(str(tmp_path / "data"), num_tasks=2,
+                            imgs_per_split=4, img_size=(96, 128), seed=1)
+    out = str(tmp_path / "out")
+    over = _overrides(root, out, norm)
+    if norm == "frozen_bn":
+        _warm_start(str(tmp_path / "warm.pth"),
+                    Config.from_sources(None, over))
+        over["run"]["load"] = str(tmp_path / "warm.pth")
+    runs = _record_detections(monkeypatch)
+    best = main(Config.from_sources(None, over), device="cpu")
+    files = sorted(os.listdir(out))
+    assert {"BEST_checkpoint", "checkpoint", "log.jsonl"} <= set(files)
+    assert len(files) == 4 and any(f.startswith("events.out.tfevents.")
+                                   for f in files)
+    log = _log(out)
+    kinds = [r["kind"] for r in log]
+    assert kinds.count("epoch") == 2 and kinds.count("eval") == 2
+    assert {"train_step", "epoch", "eval"} == set(kinds)
+    steps = [r for r in log if r["kind"] == "train_step"]
+    assert {"loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm",
+            "step", "epoch"} <= set(steps[0])
+    evals = [r for r in log if r["kind"] == "eval"]
+    assert all(np.isfinite(r["mean_ap50"]) for r in evals)
+    assert set(evals[-1]["per_task"]) == {"1", "2"}
+    assert best == max(r["mean_ap50"] for r in evals)
+    assert len(runs[0]) == 2 * 4                  # 2 evals of 2 x 2 batches
+
+    # --eval --resume through the command line: the last in-run eval again.
+    eval_out = str(tmp_path / "eval_resume")
+    sets = [f"{sec}.{k}={json.dumps(v)}" for sec, d in over.items()
+            if sec != "run" for k, v in d.items()]   # the same config
+    proc = subprocess.run(
+        [sys.executable, "-m", "toist_tpu_torch.main", "--device", "cpu",
+         "--eval", "--resume", os.path.join(out, "checkpoint"),
+         "--output-dir", eval_out, "--set", "run.seed=0", *sets],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    [resumed] = _log(eval_out)
+    assert resumed["per_task"] == evals[-1]["per_task"]
+    assert resumed["mean_ap50"] == evals[-1]["mean_ap50"]
+
+    # --eval --load of the same checkpoint (EMA preferred): the last in-run
+    # eval's detections, bit for bit.
+    over_load = dict(over, run={"eval_only": True, "seed": 0,
+                                "load": os.path.join(out, "checkpoint")})
+    m = main(Config.from_sources(None, over_load), device="cpu")
+    assert m == evals[-1]["mean_ap50"]
+    assert len(runs[1]) == 4
+    for a, b in zip(runs[0][4:], runs[1]):
+        assert torch.equal(a["scores"], b["scores"])
+        assert torch.equal(a["boxes"], b["boxes"])
+    assert runs[1][0]["scores"].std() > 0        # not a degenerate model
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--config", "configs/tdod.json", "--eval", "--resume", "ck/checkpoint"],
+    ["--load", "w.pth", "--output-dir", "out", "--set", "optim.lr=1e-4",
+     "model.backbone_norm=group_norm", "data.tasks=[1,2]", "run.seed=3"],
+])
+def test_parse_args_matches_jax(argv):
+    argv = [os.path.join(REPO, a) if a.endswith(".json") else a
+            for a in argv]
+    assert parse_args(argv).to_dict() == jmain.parse_args(argv).to_dict()
+
+
+@pytest.mark.parametrize("mode", [
+    ("loss", "distillation", True), ("loss", "cluster", True),
+    ("run", "load_noun", "teacher.pth"), ("model", "mask_model", "smallconv"),
+    ("run", "mesh_shape", [2]), ("run", "profile_dir", "trace"),
+    ("run", "pretrained_backbone", "r101.pth"),
+    ("run", "pretrained_text", "roberta.pth")])
+def test_unported_modes_raise(mode):
+    sec, key, val = mode
+    over = {sec: {key: val}}
+    if key == "distillation":
+        over["loss"]["softkd_loss"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
+        main(Config.from_sources(None, over), device="cpu")

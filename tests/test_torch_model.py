@@ -195,3 +195,42 @@ def test_train_mode_with_dropout_raises():
     ids = torch.full((1, 4), 5, dtype=torch.int32)
     with pytest.raises(ValueError, match="dropout"):   # no generator given
         model(x, m, ids, torch.zeros(1, 4, dtype=torch.bool))
+
+
+def test_init_like_jax_matches_flax_distributions():
+    """init_like_jax against the JAX package's init at the tiny config (with
+    the CLS token, RoBERTa's pooler and learned position tables): every
+    parameter and buffer under the same name, constants equal, and each
+    random one's mean and std within 10% of the JAX one's std, plus three
+    standard errors of the two estimates (a few tables have only 64
+    values)."""
+    from toist_tpu.train.step import init_variables
+    from toist_tpu_torch.models.init import init_like_jax
+
+    cfg = dataclasses.replace(TINY, contrastive_loss=True,
+                              position_embedding="learned",
+                              fused_attention="off")
+    jmodel = build_model(cfg, text_vocab_size=VOCAB, tiny_text=True,
+                         backbone_norm="frozen_bn")
+    sample = {"images": np.zeros((1, 64, 64, 3), np.float32),
+              "image_mask": np.zeros((1, 64, 64), bool),
+              "text_ids": np.full((1, 8), 5, np.int32),
+              "text_mask": np.zeros((1, 8), bool)}
+    variables = init_variables(jmodel, sample, seed=0)
+    want = jax_params_to_state_dict(variables["params"],
+                                    {"frozen": variables["frozen"]})
+    port = TOIST(pconfig.ModelConfig(**dataclasses.asdict(cfg)),
+                 text_vocab_size=VOCAB)
+    init_like_jax(port, torch.Generator().manual_seed(0))
+    got = port.state_dict()
+    assert set(got) == set(want)
+    for name, w in want.items():
+        g, w = got[name].double(), w.double()
+        assert g.shape == w.shape, name
+        if w.numel() == 1 or w.std() == 0:
+            assert torch.equal(g, w), name
+            continue
+        sd, n = w.std().item(), w.numel()
+        tol = 0.1 * sd + 3 * sd * (2.0 / n) ** 0.5
+        assert abs(g.mean().item() - w.mean().item()) <= tol, name
+        assert abs(g.std().item() - sd) <= tol, name

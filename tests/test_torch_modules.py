@@ -136,6 +136,131 @@ def test_frozen_bn_resnet_padded_canvas(weights):
     assert (got["layer4"].permute(0, 2, 3, 1).numpy()[fm] == 0).all()
 
 
+def _gn_state_dict(jparams):
+    """The JAX GroupNorm ResNet's params under the port's (the reference's)
+    names: conv kernels [kh, kw, in, out] -> [out, in, kh, kw]; each
+    Bottleneck's GroupNorm_0..3 -> bn1, bn2, bn3, downsample.1 and the
+    stem's GroupNorm_0 -> bn1 (scale -> weight, as convert.py:51 _gn reads
+    them)."""
+    def conv(p):
+        return _t(np.array(p["kernel"]).transpose(3, 2, 0, 1))
+
+    def gn(out, key, p):
+        out[f"{key}.weight"] = _t(np.array(p["scale"]))
+        out[f"{key}.bias"] = _t(np.array(p["bias"]))
+
+    sd = {"body.conv1.weight": conv(jparams["conv1"])}
+    gn(sd, "body.bn1", jparams["GroupNorm_0"])
+    for name, p in jparams.items():
+        if not name.startswith("layer"):
+            continue
+        s, b = name[len("layer"):].split("_")
+        t = f"body.layer{s}.{b}"
+        for i in (1, 2, 3):
+            sd[f"{t}.conv{i}.weight"] = conv(p[f"conv{i}"])
+            gn(sd, f"{t}.bn{i}", p[f"GroupNorm_{i - 1}"])
+        if "downsample_conv" in p:
+            sd[f"{t}.downsample.0.weight"] = conv(p["downsample_conv"])
+            gn(sd, f"{t}.downsample.1", p["GroupNorm_3"])
+    return sd
+
+
+def test_group_norm_resnet_padded_canvas():
+    """The GroupNorm backbone (flax nn.GroupNorm(32), eps 1e-6) on a padded
+    canvas, beside test_frozen_bn_resnet_padded_canvas: the same features
+    from the same weights (random scales and biases), padded region 0."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 96, 128, 3)).astype(np.float32)
+    mask = np.zeros((2, 96, 128), bool)
+    mask[1, 64:, :] = True
+    mask[1, :, 96:] = True
+    x[mask] = 0.0
+    jm = make_resnet("resnet18-test", "group_norm", False, jnp.float32)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), x[:1], None)["params"]
+
+    def perturb(path, v):          # GroupNorm scales and biases off 1 and 0
+        v = np.array(v)
+        if path[-1].key == "scale":
+            v *= rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        elif path[-1].key == "bias":
+            v += rng.normal(0, 0.1, v.shape).astype(np.float32)
+        return v
+
+    params = jax.tree_util.tree_map_with_path(perturb, params)
+    want = jax.jit(lambda a, m: jm.apply({"params": params}, a,
+                                         pad_mask=m))(x, mask)
+    port = Backbone("resnet18-test", norm="group_norm")
+    assert sum(isinstance(m, torch.nn.GroupNorm) for m in port.modules()) \
+        == 1 + 4 * 4
+    port.load_state_dict(_gn_state_dict(params))
+    assert all(m.eps == 1e-6 and m.num_groups == 32 for m in port.modules()
+               if isinstance(m, torch.nn.GroupNorm))
+    with torch.inference_mode():
+        got = port(_t(x).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last), _t(mask))
+    for name in ("layer1", "layer2", "layer3", "layer4"):
+        g = got[name].permute(0, 2, 3, 1).numpy()
+        w = np.asarray(want[name])
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)
+    fm = downsample_mask(_t(mask), 3, 4).numpy()
+    assert (got["layer4"].permute(0, 2, 3, 1).numpy()[fm] == 0).all()
+
+
+def test_roberta_dropout_rates(monkeypatch):
+    """Training-mode RoBERTa: the embeddings, attention-output and
+    FFN-output sites keep a share within 3 sigma of 0.9 and scale kept
+    values by exactly 1/0.9 (flax nn.Dropout); the attention probabilities
+    keep 230/256 (_dropout_u8). The sites are observed by wrapping the
+    module's dropout functions; ``dropout_exact`` alone is held on 10^6
+    elements, where 230/256 would lie 5 sigma off."""
+    from toist_tpu_torch.models.layers import dropout_exact
+
+    x = torch.full((1000, 1000), 3.0)
+    a = dropout_exact(x, 0.1, torch.Generator().manual_seed(1))
+    assert torch.equal(a, dropout_exact(x, 0.1,
+                                        torch.Generator().manual_seed(1)))
+    assert set(a.unique().tolist()) == {0.0, float(x[0, 0] / 0.9)}
+    sd = (0.9 * 0.1 / x.numel()) ** 0.5
+    assert abs((a != 0).float().mean().item() - 0.9) < 3 * sd
+    assert dropout_exact(x, 0.0, None) is x
+
+    sites, keeps = [], []
+    real_keep = pte.attention_keep
+
+    def exact(t, rate, g):
+        out = dropout_exact(t, rate, g)
+        sites.append((t.detach(), out.detach(), rate))
+        return out
+
+    def keep(q, k, h, rate, g):
+        keeps.append(real_keep(q, k, h, rate, g))
+        return keeps[-1]
+
+    monkeypatch.setattr(pte, "dropout_exact", exact)
+    monkeypatch.setattr(pte, "attention_keep", keep)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        3, 600, (8, 128)))
+    enc = pte.RobertaEncoder(vocab_size=600, hidden_size=D, num_layers=L,
+                             num_heads=NH, intermediate_size=FF,
+                             dropout=0.1).train()
+    with torch.no_grad():
+        enc(ids, generator=torch.Generator().manual_seed(3))
+    assert len(sites) == 1 + 2 * L and len(keeps) == L
+    kept = n = 0
+    for t, out, rate in sites:
+        assert rate == 0.1
+        on = out != 0
+        assert torch.equal(out[on], t[on] / 0.9)        # the scale, exactly
+        kept, n = kept + on.sum().item(), n + out.numel()
+    sd = (0.9 * 0.1 / n) ** 0.5
+    assert abs(kept / n - 0.9) < 3 * sd
+    share = torch.cat([m.flatten() for m in keeps]).float().mean().item()
+    p = 230 / 256
+    assert abs(share - p) < 3 * (p * (1 - p) / sum(m.numel()
+                                                   for m in keeps)) ** 0.5
+
+
 def test_roberta(weights):
     sd, params, _ = weights
     rng = np.random.default_rng(4)

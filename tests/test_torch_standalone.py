@@ -6,9 +6,10 @@ Import isolation is checked in a fresh process (every module of
 ``toist_tpu_torch``, walked with ``pkgutil``) and, for ``chip_smoke.py``,
 on its import statements read with ``ast``. Each copy (config, tokenizer,
 transforms, positive maps, cocotasks, batcher, fixtures, RLE on the native
-library, the synthetic reference state dict) is held to the JAX package's
-function on the same seeded inputs: exactly, since the copies run the same
-code. The native library's build is held to its rule of one build, renamed
+library, the synthetic reference state dict, the COCO evaluator and the
+task evaluator, the TensorBoard writer and the JSONL logger) is held to the
+JAX package's function on the same seeded inputs: exactly, since the copies
+run the same code. The native library's build is held to its rule of one build, renamed
 into place, under parallel processes.
 """
 import ast
@@ -30,8 +31,12 @@ from toist_tpu.data import fixtures as jfixtures
 from toist_tpu.data import positive_map as jpositive
 from toist_tpu.data import transforms as jtransforms
 from toist_tpu.data.tokenizer import RobertaBPE as JaxBPE
+from toist_tpu.eval import coco_eval as jcoco_eval
+from toist_tpu.eval import evaluator as jevaluator
 from toist_tpu.ops import rle as jrle
 from toist_tpu.utils import convert as jconvert
+from toist_tpu.utils import logging as jlogging
+from toist_tpu.utils import tensorboard as jtensorboard
 from toist_tpu_torch import config as pconfig
 from toist_tpu_torch.data import batcher as pbatcher
 from toist_tpu_torch.data import cocotasks as pcocotasks
@@ -39,8 +44,12 @@ from toist_tpu_torch.data import fixtures as pfixtures
 from toist_tpu_torch.data import positive_map as ppositive
 from toist_tpu_torch.data import transforms as ptransforms
 from toist_tpu_torch.data.tokenizer import RobertaBPE as PortBPE
+from toist_tpu_torch.eval import coco_eval as pcoco_eval
+from toist_tpu_torch.eval import evaluator as pevaluator
 from toist_tpu_torch.ops import rle as prle
 from toist_tpu_torch.utils import convert as pconvert
+from toist_tpu_torch.utils import logging as plogging
+from toist_tpu_torch.utils import tensorboard as ptensorboard
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "toist_tpu")
@@ -277,6 +286,88 @@ def test_synth_state_dict_matches(kw):
     for k in a:
         assert a[k].dtype == b[k].dtype, k
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+
+
+def _seeded_detections(seed, n_img=6):
+    """COCO-Tasks annotation json and detections [B, Q] (xyxy) from a seed."""
+    rng = np.random.default_rng(seed)
+    images = [{"id": i, "height": 96, "width": 128}
+              for i in range(1, n_img + 1)]
+    anns = []
+    for im in images:
+        for j in range(int(rng.integers(1, 4))):
+            x, y = rng.uniform(0, 60, 2)
+            w, h = rng.uniform(10, 60, 2)
+            anns.append({"id": len(anns) + 1, "image_id": im["id"],
+                         "category_id": int(rng.integers(1, 3)),
+                         "bbox": [x, y, w, h], "area": w * h, "iscrowd": 0,
+                         "segmentation": [[x, y, x + w, y, x + w, y + h,
+                                           x, y + h]]})
+    ids = np.arange(1, n_img + 1)
+    scores = rng.uniform(size=(n_img, 20))
+    xy = rng.uniform(0, 70, (n_img, 20, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 60, (n_img, 20, 2))],
+                           -1)
+    return {"images": images, "annotations": anns}, ids, scores, boxes
+
+
+@pytest.mark.parametrize("copy", ["coco_eval", "evaluator", "tensorboard",
+                                  "jsonl_logger"])
+def test_eval_and_logging_copies_match(tmp_path, monkeypatch, copy):
+    if copy in ("coco_eval", "evaluator"):
+        coco, ids, scores, boxes = _seeded_detections(11)
+        out = []
+        for co, ev in ((jcoco_eval, jevaluator), (pcoco_eval, pevaluator)):
+            gts = ev.gt_records_from_json(coco)
+            if copy == "coco_eval":
+                dts = [{"image_id": int(i), "category_id": 1, "score": sc,
+                        "bbox": [x0, y0, x1 - x0, y1 - y0]}
+                       for i, row, brow in zip(ids, scores, boxes)
+                       for sc, (x0, y0, x1, y1) in zip(row, brow)]
+                e = co.COCOEval(gts, dts)
+                out.append([e.stats(), e.eval["precision"],
+                            co.box_iou_xywh(boxes[0], boxes[1],
+                                            np.zeros(20))])
+            else:
+                t = ev.TaskEvaluator(gts, iou_types=("bbox", "segm"),
+                                     score_threshold=0.2)
+                valid = np.arange(len(ids)) < len(ids) - 1
+                t.update(ids, scores, boxes, valid=valid)
+                t.update(ids[:2], scores[:2], boxes[:2])     # duplicates
+                s = t.summarize()
+                out.append([s["bbox"], s["segm"], ev.mean_ap50({1: s})])
+        for a, b in zip(*out):
+            np.testing.assert_array_equal(b, a)
+        return
+    if copy == "tensorboard":
+        data = np.random.default_rng(2).bytes(300)
+        assert ptensorboard.crc32c(data) == jtensorboard.crc32c(data)
+        scalars = {"loss": 1.25, "map@0.5_bbox": 0.375, "01_ap@0.5": -1.0}
+        for mod in (ptensorboard, jtensorboard):
+            monkeypatch.setattr(mod.time, "time", lambda: 1234.5)
+        files = []
+        for name, mod in (("jax", jtensorboard), ("port", ptensorboard)):
+            assert mod.tfrecord(mod.encode_scalar_event(1.5, 7, scalars)) == \
+                jtensorboard.tfrecord(jtensorboard.encode_scalar_event(
+                    1.5, 7, scalars))
+            w = mod.SummaryWriter(str(tmp_path / name))
+            w.add_scalars(scalars, step=3)
+            w.add_scalar("training_loss", 2.0, 4)
+            files.append(w.path)
+    else:
+        records = [{"kind": "train_step", "epoch": 0, "step": 1,
+                    "loss": np.float32(2.5)},
+                   {"kind": "eval", "mean_ap50": 0.25,
+                    "per_task": {1: {"bbox": [0.1, -1.0]}}}]
+        files = []
+        for name, mod in (("jax", jlogging), ("port", plogging)):
+            log = mod.JsonlLogger(str(tmp_path / name))
+            for r in records:
+                log.write(r)
+            files.append(log.path)
+    assert os.path.basename(files[0]) == os.path.basename(files[1])
+    with open(files[0], "rb") as a, open(files[1], "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_native_library_builds_once_under_parallel_processes(tmp_path):

@@ -51,6 +51,17 @@ def dropout_u8(x: torch.Tensor, rate: float,
     return torch.where(keep, x * drop_scale(q), x.new_zeros(()))
 
 
+def dropout_exact(x: torch.Tensor, rate: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep iff a uniform draw from ``generator`` is >=
+    ``rate`` (keep probability exactly 1 - rate), kept values scaled by
+    1 / (1 - rate). Rate 0 is the identity."""
+    if rate == 0.0:
+        return x
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(u >= rate, x / (1.0 - rate), x.new_zeros(()))
+
+
 class MultiheadAttention(nn.Module):
     """q/k/v projections -> scaled dot-product -> out projection, with a key
     padding mask (True = pad).

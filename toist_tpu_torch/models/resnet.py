@@ -1,8 +1,11 @@
-"""ResNet backbone with frozen BatchNorm, NCHW weights in channels_last.
+"""ResNet backbone, NCHW weights in channels_last.
 
 Counterpart of ``toist_tpu/models/resnet.py`` with the reference checkpoint's
 names (``conv1``, ``bn1``, ``layer{s}.{b}.conv{1,2,3}``, ``bn{1,2,3}``,
-``downsample.{0,1}``). Only the frozen-BN variant is ported.
+``downsample.{0,1}``). The norm is frozen BatchNorm ("frozen_bn", the
+reference's) or GroupNorm ("group_norm", for training from scratch): flax's
+``nn.GroupNorm(num_groups=32)`` with its eps 1e-6, as the JAX package uses
+it, its scale and bias under the slot's ``weight`` / ``bias``.
 
 The JAX stem computes its 7x7 stride-2 conv through a 2x2 space-to-depth
 rewrite, a TPU layout device with the same arithmetic; here it is the plain
@@ -43,6 +46,15 @@ class FrozenBatchNorm2d(nn.Module):
                 + shift.to(x.dtype)[None, :, None, None])
 
 
+def _norm(norm: str, n: int) -> nn.Module:
+    if norm == "frozen_bn":
+        return FrozenBatchNorm2d(n)
+    if norm == "group_norm":
+        return nn.GroupNorm(32, n, eps=1e-6)
+    raise ValueError(f"backbone norm {norm!r}; supported: frozen_bn, "
+                     f"group_norm")
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
           dilation: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
@@ -53,18 +65,18 @@ class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride and dilation here) -> 1x1, x4 expansion."""
 
     def __init__(self, cin: int, width: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, norm: str = "frozen_bn"):
         super().__init__()
         self.conv1 = _conv(cin, width, 1)
-        self.bn1 = FrozenBatchNorm2d(width)
+        self.bn1 = _norm(norm, width)
         self.conv2 = _conv(width, width, 3, stride, dilation, dilation)
-        self.bn2 = FrozenBatchNorm2d(width)
+        self.bn2 = _norm(norm, width)
         self.conv3 = _conv(width, width * 4, 1)
-        self.bn3 = FrozenBatchNorm2d(width * 4)
+        self.bn3 = _norm(norm, width * 4)
         self.downsample = None
         if cin != width * 4 or stride != 1:
             self.downsample = nn.Sequential(_conv(cin, width * 4, 1, stride),
-                                            FrozenBatchNorm2d(width * 4))
+                                            _norm(norm, width * 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -90,10 +102,10 @@ class ResNet(nn.Module):
     """ResNet trunk returning {layer1..layer4} NCHW feature maps."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 23, 3),
-                 dilation: bool = False):
+                 dilation: bool = False, norm: str = "frozen_bn"):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = _norm(norm, 64)
         widths = (64, 128, 256, 512)
         cin = 64
         for si, (blocks, width) in enumerate(zip(stage_sizes, widths)):
@@ -103,7 +115,7 @@ class ResNet(nn.Module):
             layers = []
             for bi in range(blocks):
                 layers.append(Bottleneck(cin, width,
-                                         stride if bi == 0 else 1, dil))
+                                         stride if bi == 0 else 1, dil, norm))
                 cin = width * 4
             self.add_module(f"layer{si + 1}", nn.Sequential(*layers))
         self.num_stages = len(stage_sizes)
@@ -136,10 +148,7 @@ class Backbone(nn.Module):
         if name not in STAGE_SIZES:
             raise ValueError(f"backbone {name!r} is not ported; supported: "
                              f"{sorted(STAGE_SIZES)}")
-        if norm != "frozen_bn":
-            raise NotImplementedError(
-                f"backbone norm {norm!r} is not ported; only frozen_bn")
-        self.body = ResNet(STAGE_SIZES[name], dilation)
+        self.body = ResNet(STAGE_SIZES[name], dilation, norm)
 
     def forward(self, x, pad_mask=None):
         return self.body(x, pad_mask)

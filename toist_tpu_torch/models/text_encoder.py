@@ -4,10 +4,11 @@ Counterpart of ``toist_tpu/models/text_encoder.py``: learned byte-BPE
 embeddings, padding-offset position ids (``cumsum(mask) * mask + pad_id``),
 post-norm blocks with exact GELU, LayerNorm eps 1e-5. Its attention runs the
 plain path: the JAX package leaves RoBERTa's attention unfused. In training
-mode every dropout site (embeddings, attention probabilities, attention and
-FFN outputs) is ``dropout_u8``; the JAX module uses flax's ``nn.Dropout``
-(32-bit bits, keep probability exactly 1 - rate) at all but the attention
-probabilities, so the port keeps 230/256 instead of 0.9 there.
+mode the embeddings, the attention output and the FFN output drop as flax's
+``nn.Dropout`` does in the JAX module (``dropout_exact``: keep probability
+exactly 1 - rate, scale 1 / (1 - rate)); the attention probabilities drop
+with ``dropout_u8`` (keep 230/256 at rate 0.1), as JAX's ``_dropout_u8``
+does there.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from toist_tpu_torch.models.layers import active_rate, dropout_u8
+from toist_tpu_torch.models.layers import (active_rate, dropout_exact,
+                                           dropout_u8)
 from toist_tpu_torch.ops.flash_attention import (attention_keep,
                                                  attention_plain)
 
@@ -40,9 +42,9 @@ class RobertaEmbeddings(nn.Module):
         x = self.word_embeddings(input_ids)
         x = x + self.position_embeddings(position_ids)
         x = x + self.token_type_embeddings(torch.zeros_like(input_ids))
-        return dropout_u8(self.LayerNorm(x),
-                          active_rate(self, self.dropout, generator),
-                          generator)
+        return dropout_exact(self.LayerNorm(x),
+                             active_rate(self, self.dropout, generator),
+                             generator)
 
 
 class _SelfAttention(nn.Module):
@@ -93,10 +95,10 @@ class RobertaLayer(nn.Module):
                                   attention_keep(q, k, self.num_heads, rate,
                                                  generator), rate)
         out = self.attention.output
-        x = out.LayerNorm(x + dropout_u8(out.dense(attn), rate, generator))
+        x = out.LayerNorm(x + dropout_exact(out.dense(attn), rate, generator))
         h = F.gelu(self.intermediate.dense(x))
         return self.output.LayerNorm(
-            x + dropout_u8(self.output.dense(h), rate, generator))
+            x + dropout_exact(self.output.dense(h), rate, generator))
 
 
 class _Encoder(nn.Module):

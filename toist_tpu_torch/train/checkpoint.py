@@ -1,0 +1,165 @@
+"""Checkpoint save/restore in the reference's format.
+
+Counterpart of ``toist_tpu/train/checkpoint.py``. The JAX package writes its
+TrainState through orbax; the port writes the reference's own payload
+(main.py:641-652) with ``torch.save``:
+
+- ``model``: the full f32 state dict in the reference layout: the f32
+  masters of the trainable parameters, the model's own tensors (cast to f32)
+  for the frozen parameters and the buffers;
+- ``model_ema``: the same with the EMA in place of the masters (absent when
+  EMA is off);
+- ``optimizer``: ``torch.optim.AdamW.state_dict()`` (moments and step
+  counts);
+- ``epoch``, ``step``, and ``args`` (the config as a dict).
+
+So a port checkpoint is a reference ``.pth``: ``utils/convert.
+load_reference_checkpoint`` of either package reads it. A file is written
+under a temporary name and renamed into place, so a cut run never leaves
+half a file. The three load modes map to ``restore`` (--resume),
+``load_params`` (--load warm start, EMA preferred) and ``merge_params``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from toist_tpu_torch.config import Config
+from toist_tpu_torch.train.state import (TrainState, init_train_state,
+                                         load_masters, trainable_names)
+from toist_tpu_torch.utils.convert import load_reference_checkpoint
+
+# One record per finished write: path, bytes, copy_s (device -> host, on the
+# caller's thread), write_s (torch.save + rename).
+SAVES: List[Dict[str, Any]] = []
+_WRITER: Optional[ThreadPoolExecutor] = None
+_PENDING: Optional[Future] = None
+
+
+def full_state_dict(state: TrainState, ema: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """The model's reference-layout state dict in f32 on its device: the
+    masters (or, with ``ema``, the EMA) for the trainable parameters, the
+    model's own tensors for the frozen parameters and the buffers."""
+    own = state.ema if ema else dict(
+        zip(trainable_names(state), (m for _, m in state.masters)))
+    return {k: own.get(k, v).detach().float()
+            for k, v in state.model.state_dict().items()}
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _host_payload(state: TrainState, epoch: int,
+                  args: Optional[dict]) -> Dict[str, Any]:
+    opt = state.optimizer.state_dict()
+    payload = {
+        "model": {k: _host(v) for k, v in full_state_dict(state).items()},
+        "optimizer": {
+            "state": {i: {k: _host(v) if torch.is_tensor(v) else v
+                          for k, v in s.items()}
+                      for i, s in opt["state"].items()},
+            "param_groups": [dict(g) for g in opt["param_groups"]]},
+        "epoch": epoch, "step": state.step, "args": args or {}}
+    if state.ema is not None:
+        payload["model_ema"] = {k: _host(v) for k, v in
+                                full_state_dict(state, ema=True).items()}
+    return payload
+
+
+def _write(path: str, payload: Dict[str, Any], copy_s: float) -> None:
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    SAVES.append({"path": path, "bytes": os.path.getsize(path),
+                  "copy_s": copy_s, "write_s": time.perf_counter() - t0})
+
+
+def save(path: str, state: TrainState, epoch: int,
+         async_save: bool = False, args: Optional[dict] = None) -> None:
+    """Full training save. The tensors are copied to the host on the
+    caller's thread (so the device memory and the next steps' in-place
+    updates are free at once); with ``async_save`` the write runs on one
+    background thread, and a later save first waits for it."""
+    global _WRITER, _PENDING
+    wait_for_async_saves()
+    t0 = time.perf_counter()
+    payload = _host_payload(state, epoch, args)
+    copy_s = time.perf_counter() - t0
+    if not async_save:
+        _write(path, payload, copy_s)
+        return
+    if _WRITER is None:
+        _WRITER = ThreadPoolExecutor(max_workers=1)
+    _PENDING = _WRITER.submit(_write, path, payload, copy_s)
+
+
+def wait_for_async_saves() -> None:
+    """Block until the in-flight async save has been written (and raise its
+    error, if it failed)."""
+    global _PENDING
+    if _PENDING is not None:
+        pending, _PENDING = _PENDING, None
+        pending.result()
+
+
+def _load(path: str) -> Dict[str, Any]:
+    torch.serialization.add_safe_globals([argparse.Namespace])
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore(path: str, cfg: Config, steps_per_epoch: int, total_steps: int,
+            device="cuda") -> Tuple[TrainState, int]:
+    """Full training restore (--resume, main.py:491-531): the model in its
+    compute dtype (the masters cast down), the f32 masters, the AdamW
+    moments and step counts, the EMA and the step, with the schedules
+    rebuilt from ``cfg``. Returns (state, epoch)."""
+    from toist_tpu_torch.models.toist import TOIST
+
+    payload = _load(path)
+    model = TOIST.from_state_dict(payload["model"], cfg.model, device)
+    state = init_train_state(model, cfg, steps_per_epoch, total_steps)
+    load_masters(state, payload["model"], payload.get("model_ema"))
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    return state, int(payload["epoch"])
+
+
+def load_params(path: str, prefer_ema: bool = True
+                ) -> Dict[str, torch.Tensor]:
+    """Weights-only warm start (--load, main.py:456-473: EMA key
+    preferred): the checkpoint's reference-layout state dict."""
+    return load_reference_checkpoint(path, prefer_ema=prefer_ema)
+
+
+def merge_params(init_tree: Any, loaded_tree: Any) -> Any:
+    """Overlay loaded params onto a (possibly larger) initialized tree.
+
+    The reference's --frozen_weights loads a detection checkpoint into the
+    `.detr` submodule of the seg model (main.py:475-489): the mask head keeps
+    its fresh init. Keys present in both must match shapes; keys only in the
+    init tree are kept; keys only in the checkpoint are ignored (e.g. dropping
+    contrastive projections when the target model disables them)."""
+    if isinstance(init_tree, dict):
+        out = {}
+        for k, v in init_tree.items():
+            if isinstance(loaded_tree, dict) and k in loaded_tree:
+                out[k] = merge_params(v, loaded_tree[k])
+            else:
+                out[k] = v
+        return out
+    loaded = loaded_tree
+    if hasattr(init_tree, "shape") and hasattr(loaded, "shape"):
+        if tuple(init_tree.shape) != tuple(loaded.shape):
+            raise ValueError(
+                f"shape mismatch merging checkpoint: {loaded.shape} vs "
+                f"{init_tree.shape}")
+    return loaded

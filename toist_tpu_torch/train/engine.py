@@ -1,19 +1,26 @@
-"""The training epoch loop.
+"""Train/eval epoch loops (host-side orchestration).
 
-Counterpart of ``toist_tpu/train/engine.py:train_one_epoch``: iterate the
-bucketed batches of a ``toist_tpu_torch.data.batcher.BatchIterator``, copy
-each to the model's device from pinned memory, run the train step, and read
-the scalars back (a host sync) only every ``print_freq`` steps and at the
-last one, stopping the process on a non-finite loss as the reference does
-(engine.py:82-85).
+Counterpart of ``toist_tpu/train/engine.py``. ``train_one_epoch``: iterate
+the bucketed batches of a ``toist_tpu_torch.data.batcher.BatchIterator``,
+copy each to the model's device from pinned memory, run the train step, and
+read the scalars back (a host sync) only every ``print_freq`` steps and at
+the last one, stopping the process on a non-finite loss as the reference
+does (engine.py:82-85); those steps also go to the JSONL and TensorBoard
+sinks. ``evaluate``: per-task loop -> ``TaskEvaluator`` -> stats vectors +
+mean AP@0.5 over the tasks (engine.py:253-342, main.py:581-590).
 """
 from __future__ import annotations
 
 import sys
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
-from toist_tpu_torch.data.batcher import BatchIterator
-from toist_tpu_torch.utils.logging import MetricLogger
+import numpy as np
+import torch
+
+from toist_tpu_torch.data.batcher import BatchIterator, BucketSpec
+from toist_tpu_torch.eval.evaluator import (TaskEvaluator,
+                                            gt_records_from_json, mean_ap50)
+from toist_tpu_torch.utils.logging import JsonlLogger, MetricLogger
 from toist_tpu_torch.train.state import TrainState
 from toist_tpu_torch.train.step import TRAIN_KEYS, batch_to_device
 
@@ -23,6 +30,7 @@ LOGGED = ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm",
 
 def train_one_epoch(train_step: Callable, state: TrainState,
                     batch_iter: BatchIterator, epoch: int,
+                    jsonl: Optional[JsonlLogger] = None, tb=None,
                     print_freq: int = 10) -> Tuple[TrainState,
                                                    Dict[str, float]]:
     logger = MetricLogger(print_freq=print_freq, header=f"Epoch [{epoch}]")
@@ -38,4 +46,96 @@ def train_one_epoch(train_step: Callable, state: TrainState,
                 print(f"Loss is not finite: {host}", flush=True)
                 sys.exit(1)
             logger.update(**{k: host[k] for k in LOGGED if k in host})
+            if jsonl is not None:
+                jsonl.write({"kind": "train_step", "epoch": epoch,
+                             "step": int(state.step), **host})
+            if tb is not None:
+                # Reference tags: 'training_loss' + each weighted loss
+                # (engine.py:108-111).
+                row = {"training_loss": host["loss"]} if "loss" in host \
+                    else {}
+                row.update({k: v for k, v in host.items()
+                            if k.startswith("loss_")
+                            and k != "loss_is_finite"})
+                tb.add_scalars(row, step=int(state.step))
     return state, logger.summary()
+
+
+def _start_to_host(post: Dict[str, torch.Tensor],
+                   loss: Optional[torch.Tensor]):
+    """Start the copy of one batch's detections (and eval loss) to the host.
+    From a CUDA device: non-blocking copies into pinned host tensors that
+    are allocated for this batch alone, and an event recorded behind them;
+    ``_finish_to_host`` waits on it. Returns (host tensors, event)."""
+    src = {k: post[k] for k in ("scores", "boxes")}
+    if loss is not None:
+        src["loss"] = loss
+    dev = next(iter(src.values())).device
+    if dev.type != "cuda":
+        return src, None
+    host = {}
+    for k, v in src.items():
+        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host[k].copy_(v, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return host, event
+
+
+def _finish_to_host(handle) -> Dict[str, np.ndarray]:
+    host, event = handle
+    if event is not None:
+        event.synchronize()
+    return {k: v.numpy() for k, v in host.items()}
+
+
+def evaluate(eval_step: Callable, task_datasets: Dict[int, object],
+             spec: BucketSpec, batch_size: int, iou_types=("bbox",),
+             print_freq: int = 10) -> Dict[int, Dict[str, np.ndarray]]:
+    """Run per-task evaluation; returns {task_id: {'bbox': stats12}}.
+
+    ``eval_step(batch)`` (``train/step.make_eval_step``) takes a batcher
+    batch and returns {"post": {"scores", "boxes", ...}, "scalars": {...}}.
+    The loop is double-buffered as the JAX one is: each batch's detections
+    go to the host by non-blocking copies into pinned memory, and the
+    evaluator reads them (after the copies' event) only once the next
+    batch's forward has been issued, so the copies and the host's COCO
+    records overlap the device's work."""
+    if "segm" in iou_types:
+        raise NotImplementedError(
+            "evaluate with iou_types 'segm': the mask path is ROADMAP queue A "
+            "item 6")
+    results = {}
+    for task_id, ds in task_datasets.items():
+        gts = gt_records_from_json(ds.coco.dataset)
+        evaluator = TaskEvaluator(gts, iou_types=iou_types)
+        it = BatchIterator([ds], spec, batch_size=batch_size, shuffle=False)
+        logger = MetricLogger(print_freq=print_freq,
+                              header=f"Eval task {task_id}:")
+
+        def _flush(item):
+            # Materialize one batch's results on host (blocks on the copies
+            # that have been overlapping the next batch's forward).
+            np_b, handle = item
+            host = _finish_to_host(handle)
+            evaluator.update(np_b["image_id"], host["scores"],
+                             host["boxes"], valid=np_b["sample_valid"])
+            if "loss" in host:  # absent w/ compute_eval_losses off
+                logger.update(loss=float(host["loss"]))
+
+        pending = None
+        for np_batch in logger.log_every(it.epoch(0), total=len(it)):
+            res = eval_step(np_batch)
+            handle = _start_to_host(res["post"], res["scalars"].get("loss"))
+            if pending is not None:
+                _flush(pending)
+            pending = (np_batch, handle)
+        if pending is not None:
+            _flush(pending)
+        evaluator.synchronize_between_processes()
+        results[task_id] = evaluator.summarize()
+        ap50 = results[task_id]["bbox"][1]
+        print(f"Task {task_id}: AP@0.5 = {ap50:.4f}", flush=True)
+    print(f"Mean AP@0.5 over {len(results)} tasks: "
+          f"{mean_ap50(results):.4f}", flush=True)
+    return results

@@ -12,7 +12,7 @@ gradients are likewise bf16 products carried in f32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -58,3 +58,24 @@ def init_train_state(model: torch.nn.Module, cfg: Config,
                       schedules=make_schedules(cfg.optim, steps_per_epoch,
                                                total_steps),
                       masters=masters, ema=ema)
+
+
+def trainable_names(state: TrainState) -> List[str]:
+    """The parameter names of ``state.masters``, in its order."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for p, _ in state.masters]
+
+
+@torch.no_grad()
+def load_masters(state: TrainState, weights: Mapping[str, torch.Tensor],
+                 ema: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+    """Set the f32 masters of the trainable parameters from ``weights`` (a
+    reference-layout state dict, by name) and the model's parameters to
+    them cast to its dtype; set the EMA from ``ema``, or to the masters
+    when ``ema`` is None (a fresh start)."""
+    for name, (p, m) in zip(trainable_names(state), state.masters):
+        m.copy_(weights[name])
+        if m is not p:
+            p.copy_(m)
+        if state.ema is not None:
+            state.ema[name].copy_((ema if ema is not None else weights)[name])

@@ -11,6 +11,10 @@ dict taken through both functions comes back bit for bit.
 function of that name (numpy only): random weights from a seed in the
 reference checkpoint's layout, which ``TOIST.from_state_dict`` loads after
 ``torch.from_numpy``.
+
+``load_reference_checkpoint`` reads a reference ``.pth`` (or the port's own
+checkpoint, which has the same format) into a state dict of that layout:
+the port keeps the reference's parameter names, so no conversion is needed.
 """
 from __future__ import annotations
 
@@ -165,6 +169,28 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
             else:
                 out.conv(f"mask_head.{k}", mh[k])
     return out.sd
+
+
+def load_reference_checkpoint(path: str, prefer_ema: bool = True
+                              ) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint's weights as a state dict for
+    ``TOIST.from_state_dict`` (``toist_tpu/utils/convert.py:225``):
+    ``model_ema`` when asked for and present and non-empty, else ``model``;
+    the DDP ``module.`` and DETRsegm ``detr.`` prefixes stripped. Loaded with
+    ``weights_only=True``; a reference payload keeps its ``args`` as an
+    ``argparse.Namespace``, the one class allowed besides."""
+    import argparse
+
+    torch.serialization.add_safe_globals([argparse.Namespace])
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    key = "model_ema" if (prefer_ema and payload.get("model_ema")) else "model"
+    out = {}
+    for k, v in payload[key].items():
+        for pre in ("module.", "detr."):
+            if k.startswith(pre):
+                k = k[len(pre):]
+        out[k] = v
+    return out
 
 
 def synth_reference_state_dict(stage_sizes=(1, 1, 1, 1), enc=1, dec=1,

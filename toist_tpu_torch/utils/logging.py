@@ -1,13 +1,18 @@
-"""Metric logging: smoothed meters and stdout progress.
+"""Metric logging: smoothed meters, stdout progress, JSONL sink.
 
-The part of ``toist_tpu/utils/logging.py`` that ``train_one_epoch`` uses
-(``SmoothedValue`` and ``MetricLogger`` without its cross-host merge), copied
-line for line. Reference behavior: util/metrics.py SmoothedValue/MetricLogger
-(window meters, eta/iter-time printing every N steps).
+The part of ``toist_tpu/utils/logging.py`` that the engine and ``main`` use
+(``SmoothedValue``, ``MetricLogger`` without its cross-host merge, and
+``JsonlLogger``), copied line for line; ``JsonlLogger`` takes its rank from
+``torch.distributed`` (``utils/dist.py``) where the JAX package asks jax.
+Reference behavior: util/metrics.py SmoothedValue/MetricLogger (window
+meters, eta/iter-time printing every N steps) and main.py:687-689 (log.txt
+JSON lines, rank 0 only via util/dist.py:199).
 """
 from __future__ import annotations
 
 import datetime
+import json
+import os
 import time
 from collections import defaultdict, deque
 from typing import Dict, Iterable, Optional
@@ -90,3 +95,27 @@ class MetricLogger:
 
     def summary(self) -> Dict[str, float]:
         return {k: m.global_avg for k, m in self.meters.items()}
+
+
+class JsonlLogger:
+    """Append-only JSONL sink (the reference's log.txt, main.py:687-689).
+
+    Rank-gated: only process 0 writes (reference save_on_master,
+    util/dist.py:199-202) — otherwise each host of a shared output_dir would
+    append its own differing epoch records to the same file."""
+
+    def __init__(self, output_dir: str, name: str = "log.jsonl",
+                 rank_gated: bool = True):
+        self.path = os.path.join(output_dir, name) if output_dir else None
+        if self.path and rank_gated:
+            from toist_tpu_torch.utils.dist import process_index
+            if process_index() != 0:
+                self.path = None
+        if self.path:
+            os.makedirs(output_dir, exist_ok=True)
+
+    def write(self, record: dict):
+        if not self.path:
+            return
+        with open(self.path, "a") as f:
+            f.write(json.dumps(record, default=float) + "\n")
