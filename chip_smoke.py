@@ -102,6 +102,44 @@ Phases, each of which raises on failure (non-zero exit):
      (a smoke value) and each checkpoint's size, host-copy and write
      seconds.
 
+ 12. noun-pronoun distillation through toist_tpu_torch.main at full width
+     in bf16 on the fixture: run 1 trains one epoch of 3 pairs per step
+     (the student from phase 11's seeded weights by --load, the teacher
+     from phase 11's checkpoint by run.load_noun; softkd coef 50, nsthl2,
+     the cluster bank [14, 1024, 256] with K 3 and 32 k-means iterations;
+     dropout 0.1), writes checkpoint (student, teacher, both EMAs, AdamW
+     over both, the bank), runs the cluster eval (batch 4, 800x1344) and
+     writes BEST_checkpoint; run 2 is --eval --resume <out>/checkpoint.
+     Every training step launches 24 forward, 24 dK/dV and 24 dQ
+     tensor-core attention kernels and 3 LSA (the noun and sth matchers,
+     the softkd re-pairing), every eval batch 12 forwards and 1 LSA; every
+     loss is finite (softkd and its 5 aux levels, nsthl2, the cluster
+     feature loss among them); the bank grows by the valid noun samples of
+     each step; the cluster bank's entry points run under
+     torch.cuda.set_sync_debug_mode("error"), so a host sync there fails
+     the run; both models' trainable parameters change and their frozen
+     ones do not, and both EMAs move; run 2's state equals run 1's bit for
+     bit. It prints step ms, pairs/s and peak memory; torch.profiler over
+     3 steps (kernel ms by kind, launches, busy share); the bank's calls
+     replayed on the last step's inputs (launches, kernel and host ms; one
+     k-means call's launches, times the 6 per step); the cluster-eval
+     img/s; each checkpoint's size, copy and write seconds. Then one f32
+     distillation step (dropout 0; phase 11's seeded student, a teacher
+     from the next seed, run 1's bank) with the kernels against the same
+     step with the plain attention and the plain LSA: each solve's kernel
+     assignment against the plain solver on the same costs (equal, or
+     equal total cost on ties for softkd), one matching for both runs (a
+     problem matched otherwise must be a near-tie, 1e-4), losses within
+     1e-4 relative (of at least 1e-3: softkd between two random models
+     is a KL of 2e-6) and both models' gradients within 2e-3 of each
+     tensor's max abs, or twice its f32 floor (the plain step's distance
+     from the same step with f64 attention) where that is larger. The first
+     training step's real [18,100,100] softkd costs go through phase 7's
+     LSA check and phase 10's timing. Last, the port's ablation module
+     (toist_tpu_torch.scripts.fixture_distill_ablation) runs on the card:
+     the teacher's, the plain and the distilled student's AP@0.5 and the
+     margin, as a record (the gate is a CPU test).
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path.
 """
@@ -450,6 +488,24 @@ def _check_results(results, n_valid, num_queries):
             raise AssertionError("scores not sorted")
 
 
+def seeded_weights(seed):
+    """Random flagship weights from ``seed`` in the reference checkpoint's
+    layout, as torch tensors on the host."""
+    import torch
+
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.utils.convert import synth_reference_state_dict
+
+    m = Config.from_sources(None, {}).model
+    sd = synth_reference_state_dict(
+        stage_sizes=(3, 4, 23, 3), enc=m.enc_layers, dec=m.dec_layers,
+        d=m.hidden_dim, dim_feedforward=m.dim_feedforward,
+        text_layers=m.text_layers, text_hidden=m.text_hidden,
+        text_intermediate=m.text_intermediate, num_queries=m.num_queries,
+        contrastive_hdim=m.contrastive_hdim, with_masks=False, seed=seed)
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
 def phase_slice(smi, has_pil):
     import numpy as np
     import torch
@@ -457,19 +513,11 @@ def phase_slice(smi, has_pil):
     from toist_tpu_torch.config import Config
     from toist_tpu_torch.ops.flash_attention import flash_attention
     from toist_tpu_torch.predict import Predictor
-    from toist_tpu_torch.utils.convert import synth_reference_state_dict
 
     cfg = Config.from_sources(None, {"run": {"compute_eval_losses": False}})
     m = cfg.model
     t0 = time.perf_counter()
-    sd = synth_reference_state_dict(
-        stage_sizes=(3, 4, 23, 3), enc=m.enc_layers, dec=m.dec_layers,
-        d=m.hidden_dim, dim_feedforward=m.dim_feedforward,
-        text_layers=m.text_layers, text_hidden=m.text_hidden,
-        text_intermediate=m.text_intermediate, num_queries=m.num_queries,
-        contrastive_hdim=m.contrastive_hdim, with_masks=False, seed=SEED)
-    state_dict = {k: torch.from_numpy(v) for k, v in sd.items()}
-    del sd
+    state_dict = seeded_weights(SEED)
     predictor = Predictor.from_state_dict(state_dict, cfg)
     n_params = sum(p.numel() for p in predictor.model.parameters())
     log(f"[slice] weights from seed {SEED}: {n_params} parameters, "
@@ -910,16 +958,22 @@ def _kernel_kind(name):
     return "other"
 
 
-def _profile_steps(smi, step, state, it, canvas, n=3):
-    """torch.profiler over n bf16 training steps on one canvas after a
-    warm-up step there: device kernel ms per step by kind and by attention
-    kernel, against the host-clock ms of n unprofiled steps (busy share)."""
+def _canvas(batch):
+    """(H, W) of a batch, or of a distillation pair's."""
+    return tuple((batch["sth"] if "sth" in batch else batch)["images"]
+                 .shape[1:3])
+
+
+def _profile_steps(smi, step, state, it, canvas, n=3, label="bf16"):
+    """torch.profiler over n training steps on one canvas after a warm-up
+    step there: device kernel ms per step by kind and by attention kernel,
+    against the host-clock ms of n unprofiled steps (busy share)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     batches = [b for b in it.epoch(2, num_workers=1)
-               if tuple(b["images"].shape[1:3]) == canvas]
+               if _canvas(b) == canvas]
     while len(batches) < n + 1:
         batches += batches
     state, _ = step(state, batches[0])
@@ -967,7 +1021,7 @@ def _profile_steps(smi, step, state, it, canvas, n=3):
     if kernel_ms <= 0:      # the profiler saw no device time: not measured
         res = {"canvas": list(canvas), "wall_ms": wall,
                "kernel_ms_per_step": "not measured"}
-    log(f"[profile] bf16 training step {json.dumps(res)} | {smi}")
+    log(f"[profile] {label} training step {json.dumps(res)} | {smi}")
     return res
 
 
@@ -1167,8 +1221,6 @@ def phase_times(smi, lsa_cases, lsa_inputs):
     steps of the longest problem and the ns per step."""
     import torch
 
-    from toist_tpu_torch.ops.lsa import solve_lsa_batch
-
     s_eval = attention_shapes()[0][2]
     s_832 = (832 // 32) * (1344 // 32) + 64
     g = torch.Generator().manual_seed(SEED + 2)
@@ -1209,34 +1261,51 @@ def phase_times(smi, lsa_cases, lsa_inputs):
                     f"{json.dumps(per['dropout_overhead'])} of each "
                     f"kernel's rate-0 time")
             out[name][dt_name] = per
-    out["lsa"] = {}
-    for case in lsa_cases:
-        if case["case"] not in lsa_inputs:
-            continue
-        c, n = lsa_inputs[case["case"]]
-        ms = device_ms(lambda: solve_lsa_batch(c, n))
-        out["lsa"][case["case"]] = t = {
-            "shape": case["shape"], "ms": ms, "bound_ms": case["bound_ms"],
-            "bound_by": "bytes", "plain_ms": case["plain_ms"],
-            "steps_longest": case["steps_longest"],
-            "ns_per_step": ms * 1e6 / max(case["steps_longest"], 1)}
-        log(f"[times] lsa {case['case']} {json.dumps(t)} | {smi}")
+    out["lsa"] = {case["case"]: lsa_time(smi, case, lsa_inputs)
+                  for case in lsa_cases if case["case"] in lsa_inputs}
     return out
+
+
+def lsa_time(smi, case, lsa_inputs):
+    """device_ms of the LSA kernel on one timed case's costs, beside its
+    bound, the plain version's host ms and the ns per dependent step."""
+    from toist_tpu_torch.ops.lsa import solve_lsa_batch
+
+    c, n = lsa_inputs[case["case"]]
+    ms = device_ms(lambda: solve_lsa_batch(c, n))
+    t = {"shape": case["shape"], "ms": ms, "bound_ms": case["bound_ms"],
+         "bound_by": "bytes", "plain_ms": case["plain_ms"],
+         "steps_longest": case["steps_longest"],
+         "ns_per_step": ms * 1e6 / max(case["steps_longest"], 1)}
+    log(f"[times] lsa {case['case']} {json.dumps(t)} | {smi}")
+    return t
 
 
 class _Hooks:
     """Wraps what toist_tpu_torch.main calls (its train and eval steps,
     engine.evaluate, checkpoint.restore) to count each call's kernel
-    launches and keep what phase 11 checks; ``undo`` puts them back."""
+    launches and keep what phases 11 and 12 check; ``undo`` puts them back.
+    With ``distill`` (phase 12) it also wraps the distillation and cluster
+    eval step makers, times each train step (host clock with a device
+    sync), snapshots the state before the first step, keeps the bank's
+    growth per step, runs the cluster bank's entry points under
+    torch.cuda.set_sync_debug_mode("error") (a host sync there raises) and
+    keeps their last inputs and the first softkd re-pairing problem."""
 
-    def __init__(self):
+    def __init__(self, distill=False):
+        import torch
+
         from toist_tpu_torch import main as pmain
         from toist_tpu_torch.train import checkpoint as ckpt
+        from toist_tpu_torch.train import cluster as cl
+        from toist_tpu_torch.train import criterion as crit
         from toist_tpu_torch.train import engine
 
         self.undo_list = []
         self.train, self.evals, self.restored, self.state = [], [], [], None
         self.first_dets = []
+        self.steps, self.first, self.cluster_inputs = [], None, {}
+        self.softkd_problem, self.cluster_calls = None, 0
 
         def patch(obj, name, wrap):
             self.undo_list.append((obj, name, getattr(obj, name)))
@@ -1247,12 +1316,24 @@ class _Hooks:
                 step = make(cfg, weight_dict)
 
                 def train_step(state, batch):
+                    if distill and self.first is None:
+                        self.first = _snapshot(state)
                     before = read_counts()
+                    if distill:
+                        bank0 = state.cluster_bank.update_count.sum().item()
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
                     state, scalars = step(state, batch)
+                    if distill:
+                        torch.cuda.synchronize()
+                        ms = (time.perf_counter() - t0) * 1e3
                     after = read_counts()
                     self.train.append({k: after[k] - before[k]
                                        for k in after})
                     self.state = state
+                    if distill:
+                        self.steps.append(_distill_step_record(
+                            state, batch, scalars, ms, bank0))
                     return state, scalars
                 return train_step
             return make_step
@@ -1261,11 +1342,12 @@ class _Hooks:
             def make_step(model, cfg, weight_dict):
                 step = make(model, cfg, weight_dict)
 
-                def eval_step(batch):
+                def eval_step(*args):
+                    batch = args[-1]
                     run = self.evals[-1]
                     run["calls"].append(time.perf_counter())
                     before = read_counts()
-                    res = step(batch)
+                    res = step(*args)
                     after = read_counts()
                     run["parts"]["eval_step"] = run["parts"].get(
                         "eval_step", 0.0) + (time.perf_counter()
@@ -1315,10 +1397,38 @@ class _Hooks:
                 return state, epoch
             return run
 
+        def no_sync(name):
+            def wrap(fn):
+                def run(*args, **kwargs):
+                    self.cluster_calls += 1
+                    key = name if kwargs.get("train", True) else \
+                        f"{name}_eval"
+                    self.cluster_inputs[key] = (_detached(args), kwargs)
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                return run
+            return wrap
+
+        def first_softkd(solve):
+            def run(cost, n):
+                if self.softkd_problem is None:
+                    self.softkd_problem = (cost.detach().clone(), n.clone())
+                return solve(cost, n)
+            return run
+
         patch(pmain, "make_train_step", counted_train)
         patch(pmain, "make_eval_step", counted_eval)
         patch(engine, "evaluate", timed_evaluate)
         patch(ckpt, "restore", kept_restore)
+        if distill:
+            patch(pmain, "make_distillation_train_step", counted_train)
+            patch(pmain, "make_cluster_eval_step", counted_eval)
+            for name in ("teacher_update_and_snap", "student_cluster"):
+                patch(cl, name, no_sync(name))
+            patch(crit, "solve_lsa_batch", first_softkd)
         # Where evaluate's host time goes: the eval step (the forward's
         # launches, the criterion and its matching), the wait for each
         # batch's copies (the device's time beyond what the next batch
@@ -1333,17 +1443,78 @@ class _Hooks:
             setattr(obj, name, orig)
 
 
+def _detached(x):
+    """x with every tensor in it (in tuples, lists, dicts) detached."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_detached(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _detached(v) for k, v in x.items()}
+    return x
+
+
+def _snapshot(state):
+    """Copies of what phase 12 checks moved: both models' masters and EMAs,
+    and their frozen parameters."""
+    from toist_tpu_torch.train.state import model_masters
+
+    snap = {}
+    for who, teacher in (("student", False), ("teacher", True)):
+        model = state.teacher if teacher else state.model
+        ema = state.teacher_ema if teacher else state.ema
+        snap[who] = {
+            "masters": {n: m.detach().clone()
+                        for n, _, m in model_masters(state, teacher)},
+            "ema": {n: e.clone() for n, e in ema.items()},
+            "frozen": {n: p.detach().clone()
+                       for n, p in model.named_parameters()
+                       if not p.requires_grad}}
+    return snap
+
+
+def _distill_step_record(state, batch, scalars, ms, bank0):
+    """One distillation step: its ms, canvas and pairs, the bank's growth
+    against the valid noun samples with a noun span on a valid box (what
+    ``teacher_update_and_snap`` pushes), its scalars."""
+    noun = batch["noun"]
+    spans = noun["noun_token_spans"]
+    pushed = (noun["box_valid"] & (spans[..., 0] >= 0)
+              & (spans[..., 1] >= spans[..., 0])).any(-1) \
+        & noun["sample_valid"]
+    return {"canvas": list(noun["images"].shape[1:3]),
+            "pairs": int(noun["sample_valid"].sum()), "ms": ms,
+            "bank_growth": state.cluster_bank.update_count.sum().item()
+            - bank0,
+            "pushed": int(pushed.sum()),
+            "scalars": {k: float(v) for k, v in scalars.items()
+                        if v.dim() == 0}}
+
+
 def _states_equal(a, b):
     """Names of the parts of two TrainStates that differ (bit for bit)."""
+    import dataclasses
+
     bad = []
     if a.step != b.step:
         bad.append("step")
-    if any(not (_equal(pa, pb) and _equal(ma, mb))
-           for (pa, ma), (pb, mb) in zip(a.masters, b.masters)):
+    if len(a.masters) != len(b.masters) or any(
+            not (_equal(pa, pb) and _equal(ma, mb))
+            for (pa, ma), (pb, mb) in zip(a.masters, b.masters)):
         bad.append("masters")
-    if list(a.ema) != list(b.ema) or any(not _equal(a.ema[n], b.ema[n])
-                                         for n in a.ema):
-        bad.append("ema")
+    for name in ("ema", "teacher_ema"):
+        ea, eb = getattr(a, name), getattr(b, name)
+        if (ea is None) != (eb is None) or list(ea or ()) != list(
+                eb or ()) or any(not _equal(ea[n], eb[n]) for n in ea or ()):
+            bad.append(name)
+    if (a.cluster_bank is None) != (b.cluster_bank is None) or (
+            a.cluster_bank is not None and any(
+                not _equal(getattr(a.cluster_bank, f.name),
+                           getattr(b.cluster_bank, f.name))
+                for f in dataclasses.fields(a.cluster_bank))):
+        bad.append("cluster_bank")
     sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
     if set(sa["state"]) != set(sb["state"]) or any(
             not _equal(v, sb["state"][i][k])
@@ -1469,10 +1640,492 @@ def phase_main(smi, state_dict, root):
     return res
 
 
+DISTILL_B = 3        # pairs per step (scripts/train_dete_dis.sh)
+DISTILL_EVAL_B = 4   # the reference's distillation eval batch
+DISTILL_SETS = ["loss.distillation=true", "loss.softkd_loss=true",
+                "loss.softkd_coef=50", "loss.nsthl2_loss=true",
+                "loss.cluster=true", "loss.cluster_num=3",
+                "loss.cluster_memory_size=1024", "loss.kmeans_max_iters=32"]
+KD_LOSSES = (["loss_softkd"] + [f"loss_softkd_{i}" for i in range(5)]
+             + ["loss_nsthl2", "loss_cluster_feature"])
+
+
+def phase_distill(smi, root, teacher_ckpt):
+    """Phase 12: noun-pronoun distillation through toist_tpu_torch.main at
+    full width in bf16 on the fixture: run 1 trains one epoch of 3 pairs
+    (the student from phase 11's seeded weights by --load, the teacher from
+    phase 11's checkpoint by run.load_noun; softkd, nsthl2, the cluster
+    bank of [14, 1024, 256] with K 3 and 32 k-means iterations), writes
+    checkpoint, runs the cluster eval (batch 4) and writes BEST_checkpoint;
+    run 2 is --eval --resume <out>/checkpoint."""
+    import numpy as np
+    import torch
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.train import checkpoint as ckpt
+
+    d = _fixture_config(root).data
+    load = os.path.join(root, "seeded_weights.pth")      # phase 11's --load
+    out = os.path.join(root, "distill_out")
+    sets = [f"data.coco_path={d.coco_path}",
+            f"data.refexp_ann_path={d.refexp_ann_path}", "data.tasks=[1,2]",
+            f"data.num_workers={d.num_workers}", "optim.epochs=1",
+            f"optim.train_batch_size={DISTILL_B}",
+            f"optim.valid_batch_size={DISTILL_EVAL_B}", "optim.eval_skip=1",
+            f"run.load_noun={teacher_ckpt}", *DISTILL_SETS]
+    argv1 = ["--load", load, "--output-dir", out, "--set", *sets]
+    argv2 = ["--eval", "--resume", os.path.join(out, "checkpoint"),
+             "--set", *sets]
+    hooks = _Hooks(distill=True)
+    n_saves = len(ckpt.SAVES)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        best = pmain.main(pmain.parse_args(argv1))
+        t1 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        run1_state = hooks.state
+        m2 = pmain.main(pmain.parse_args(argv2))
+        t2 = time.perf_counter()
+        launches = read_counts()
+    finally:
+        hooks.undo()
+    log(f"[distill] run 1 (train 1 epoch, checkpoint, cluster eval, best): "
+        f"{t1 - t0:.2f} s; run 2 (--eval --resume): {t2 - t1:.2f} s | {smi}")
+
+    with open(os.path.join(out, "log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    kinds = {r["kind"] for r in records}
+    want_train = {k: 2 * LAUNCHES_PER_FORWARD for k in
+                  ("fwd", "dkv", "dq", "fwd_tc", "dkv_tc", "dq_tc")}
+    want_train.update(dropout=6 * LAUNCHES_PER_FORWARD, lsa=3)
+    want_eval = {k: 0 for k in want_train}
+    want_eval.update(fwd=LAUNCHES_PER_FORWARD, fwd_tc=LAUNCHES_PER_FORWARD,
+                     lsa=1)
+    bad_train = [c for c in hooks.train if c != want_train]
+    bad_eval = [c for run in hooks.evals for c in run["launches"]
+                if c != want_eval]
+    bad_losses = [st for st in hooks.steps
+                  if not all(math.isfinite(v) for v in st["scalars"].values())
+                  or not set(KD_LOSSES) <= set(st["scalars"])]
+    bad_bank = [st for st in hooks.steps if st["bank_growth"] != st["pushed"]]
+    diff = _states_equal(run1_state, hooks.restored[0]) \
+        if hooks.restored else ["no restore"]
+    det_err = {k: _rel_err(hooks.first_dets[1][k], hooks.first_dets[0][k])
+               for k in ("scores", "boxes")}
+    moved = _moved(hooks.first, run1_state)
+    saves = [dict(s, path=os.path.basename(s["path"]))
+             for s in ckpt.SAVES[n_saves:]]
+    runs = [{"batches": len(run["calls"]), "images": sum(run["images"]),
+             "img_s": sum(run["images"][1:]) / (run["end"] - run["calls"][1]),
+             "host_s_by_part": run["parts"]} for run in hooks.evals]
+    steps = hooks.steps
+    pairs = sum(st["pairs"] for st in steps)
+    step_s = sum(st["ms"] for st in steps) / 1e3
+    res = {"train_steps": len(hooks.train), "eval_runs": runs,
+           "mean_ap50": {"run1": best, "run2": m2,
+                         "log": [r["mean_ap50"] for r in records
+                                 if r["kind"] == "eval"]},
+           "checkpoints": saves, "resume_differs": diff,
+           "first_eval_batch_rel_err": det_err, "launches": launches,
+           "log_kinds": sorted(kinds), "parameters": moved,
+           "cluster_calls_without_sync": hooks.cluster_calls,
+           "pairs_s": pairs / step_s, "peak_gib": peak,
+           "bank_update_count": run1_state.cluster_bank.update_count.tolist(),
+           "bank_full": run1_state.cluster_bank.full.tolist()}
+    for st in steps:
+        log(f"[distill] step {json.dumps(st)}")
+    log(f"[distill] {json.dumps(res)} | {smi}")
+    log(f"[distill] {len(steps)} steps, {pairs} pairs in {step_s:.3f} s: "
+        f"{pairs / step_s:.3f} pairs/s, step ms "
+        f"{sorted(round(st['ms'], 1) for st in steps)}, peak memory "
+        f"{peak:.2f} GiB | {smi}")
+    for sv in saves:
+        log(f"[distill] {sv['path']}: {sv['bytes'] / 2**30:.3f} GiB, host "
+            f"copy {sv['copy_s']:.2f} s, write {sv['write_s']:.2f} s | {smi}")
+    for i, r in enumerate(runs):
+        log(f"[distill] run {i + 1} cluster eval: {r['img_s']:.2f} img/s "
+            f"over {r['batches']} batches of {DISTILL_EVAL_B} (first left "
+            f"out), mean AP@0.5 {(best, m2)[i]:.4f} (a smoke value) | {smi}")
+    path_counts = {k: launches[k] for k in ("fwd_tc", "dkv_tc", "dq_tc",
+                                            "dropout", "lsa")}
+    if (len(steps) < 5 or bad_train or bad_losses or bad_bank
+            or len(hooks.evals) != 2 or any(r["batches"] != 16 for r in runs)
+            or bad_eval or not {"train_step", "epoch", "eval"} <= kinds
+            or not (np.isfinite(best) and np.isfinite(m2))
+            or diff or max(det_err.values()) > REL_TOL["bfloat16"]
+            or not moved["ok"] or not all(path_counts.values())
+            or hooks.cluster_calls < 2 * len(steps) + 32
+            or [sv["path"] for sv in saves] != ["checkpoint",
+                                                "BEST_checkpoint"]):
+        raise AssertionError(
+            f"phase 12 (distillation): {res}; bad train steps "
+            f"{bad_train[:3]}, bad eval steps {bad_eval[:3]}, bad losses "
+            f"{bad_losses[:2]}, bank growth {bad_bank[:2]}")
+    res["eval_tc_launches"] = sum(c["fwd_tc"] for run in hooks.evals
+                                  for c in run["launches"])
+    hooks.restored.clear()
+    torch.cuda.empty_cache()
+
+    res["cluster"] = _cluster_costs(smi, hooks.cluster_inputs)
+    cfg = pmain.parse_args(argv1)
+    it = _paired_iterator(cfg)
+    from toist_tpu_torch.train.criterion import build_weight_dict
+    from toist_tpu_torch.train.distill import make_distillation_train_step
+    step = make_distillation_train_step(
+        cfg, build_weight_dict(cfg.loss, False, cfg.model.dec_layers))
+    top = max({tuple(st["canvas"]) for st in steps},
+              key=lambda hw: hw[0] * hw[1])
+    res["profile"] = _profile_steps(smi, step, run1_state, it, top,
+                                    label="distillation")
+    first_batch = next(it.epoch(0, num_workers=1))
+    return res, run1_state, first_batch, hooks.softkd_problem
+
+
+def _moved(first, state):
+    """Whether both models' trainable parameters all changed, their frozen
+    ones did not, and both EMAs moved, against the snapshot ``first``."""
+    import torch
+
+    from toist_tpu_torch.train.state import model_masters
+
+    out = {"ok": True}
+    for who, teacher in (("student", False), ("teacher", True)):
+        model = state.teacher if teacher else state.model
+        ema = state.teacher_ema if teacher else state.ema
+        masters = {n: m for n, _, m in model_masters(state, teacher)}
+        params = dict(model.named_parameters())
+        snap = first[who]
+        changed = sum(not torch.equal(snap["masters"][n], m)
+                      for n, m in masters.items())
+        frozen_moved = [n for n, p in snap["frozen"].items()
+                        if not torch.equal(p, params[n])]
+        ema_moved = sum(not torch.equal(snap["ema"][n], e)
+                        for n, e in ema.items())
+        out[who] = {"trainable": len(masters), "changed": changed,
+                    "frozen": len(snap["frozen"]),
+                    "frozen_moved": frozen_moved[:5],
+                    "ema_moved": ema_moved}
+        out["ok"] &= (changed == len(masters) > 0 and not frozen_moved
+                      and len(snap["frozen"]) > 0
+                      and ema_moved == len(masters))
+    return out
+
+
+def _paired_iterator(cfg):
+    """The distillation training batches of ``cfg`` (paired noun/sth)."""
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.data.batcher import BatchIterator
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+
+    tokenizer = build_tokenizer(cfg)
+    train_spec, _ = pmain.build_specs(cfg)
+    datasets = [build_task_dataset(cfg.data, t, "train", tokenizer,
+                                   distillation=True)
+                for t in cfg.data.tasks]
+    return BatchIterator(datasets, train_spec, batch_size=DISTILL_B,
+                         seed=cfg.run.seed, paired=True,
+                         num_workers=cfg.data.num_workers)
+
+
+def _cluster_costs(smi, inputs):
+    """The cluster bank's calls of one distillation step, replayed on the
+    last step's inputs: device kernel launches and the sum of their kernel
+    ms (torch.profiler), and host ms per call (host clock with a sync); the
+    same for one k-means call on a task's bank, and its launches per step
+    (B teacher + B student samples). device_ms cannot time these calls: a
+    call queues more kernels than the launch queue holds behind its spin."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from toist_tpu_torch.ops.kmeans import kmeans
+    from toist_tpu_torch.train import cluster as cl
+
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        us = [getattr(e, "self_device_time_total", None) for e in events]
+        us = [e.self_cuda_time_total if u is None else u
+              for e, u in zip(events, us)]
+        return sum(e.count for e in events), sum(us) / 1e3
+
+    def host_ms(fn, n=5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    args_t, kw_t = inputs["teacher_update_and_snap"]
+    args_s, kw_s = inputs["student_cluster"]
+    bank = args_t[0]
+    calls = {
+        "teacher_update_and_snap": lambda: cl.teacher_update_and_snap(
+            *args_t, **kw_t),
+        "student_cluster": lambda: cl.student_cluster(*args_s, **kw_s),
+        "kmeans": lambda: kmeans(bank.feature_bank[0],
+                                 bank.cluster_centers[0], 32)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            fn()
+            n, kernel_ms = profiled(fn)
+            out[name] = {"launches": n, "kernel_ms": kernel_ms or
+                         "not measured", "host_ms": host_ms(fn)}
+    out["kmeans"]["calls_per_step"] = 2 * DISTILL_B
+    out["kmeans_launches_per_step"] = 2 * DISTILL_B \
+        * out["kmeans"]["launches"]
+    out["cluster_launches_per_step"] = (
+        out["teacher_update_and_snap"]["launches"]
+        + out["student_cluster"]["launches"])
+    log(f"[distill] cluster bank per step (replayed on the last step's "
+        f"inputs, bank {list(bank.feature_bank.shape)}, K "
+        f"{bank.cluster_centers.shape[1]}, 32 iterations): "
+        f"{json.dumps(out)} | {smi}")
+    return out
+
+
+# Gradients that are 0 by construction (RoBERTa's key biases, the first
+# decoder self-attention's) against their partner's, in the f32
+# distillation step. f32 rounding of the reference's 1e4-weighted feature
+# losses (nsthl2, cluster) puts them at 1.2e-4 to 1.8e-4 in the plain run
+# as in the kernels' (5.4e-5 with those weights at 1); neither passes
+# through a kernel.
+ZERO_TOL = 1e-3
+# The smallest loss scale in that step: softkd between two random models is
+# a KL of near-equal distributions (2e-6 at the main level), whose sum the
+# kernels' f32 rounding moves by 3e-9, 1e-3 of itself.
+LOSS_ABS = 1e-3
+
+
+def _attention_f64(q, k, v, key_padding_mask, num_heads, dropout_keep=None,
+                   dropout_rate=0.0):
+    """``attention_plain`` at rate 0 computed in f64, its output cast back
+    to q's dtype: the reference for a gradient's f32 floor."""
+    import torch
+
+    from toist_tpu_torch.ops.flash_attention import NEG_INF
+
+    assert dropout_keep is None
+    B, Sq, D = q.shape
+    hd = D // num_heads
+    qh, kh, vh = (t.double().reshape(B, -1, num_heads, hd).transpose(1, 2)
+                  for t in (q, k, v))
+    logits = qh @ kh.transpose(-1, -2) / math.sqrt(hd)
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :],
+                                    NEG_INF)
+    out = torch.softmax(logits, dim=-1) @ vh
+    return out.transpose(1, 2).reshape(B, Sq, D).to(q.dtype), None
+
+
+def phase_distill_kernel_vs_plain(student_sd, teacher_sd, bank0, batch):
+    """One f32 distillation step (dropout 0) of the student and teacher
+    weights (reference-layout state dicts) from the bank ``bank0``: with
+    the kernels, and the same step with the plain attention and the plain
+    LSA. The kernel run's three
+    solves (the noun and sth matchers, the softkd re-pairing) are held
+    against the plain solver on the same costs (equal assignments, or equal
+    total cost on ties); the plain run takes the kernel run's assignments
+    (one matching), and a problem that its own costs would match otherwise
+    must be a near-tie (costs within 1e-4 on the kernel run's costs).
+    Losses within 1e-4 of max(|loss|, LOSS_ABS), the gradients of both
+    models within 2e-3 of each tensor's max abs. A third run, the plain one
+    with every attention computed in f64, gives each loss's and gradient's
+    f32 floor: a gradient whose plain f32 value is itself that far from the
+    f64 run's (a sum that nearly cancels) is held to twice its floor
+    instead. The gradients that are 0 by construction are held to ZERO_TOL
+    of their partner's."""
+    import dataclasses
+
+    import torch
+
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.models import layers
+    from toist_tpu_torch.models.layers import set_fused_attention
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.ops import lsa
+    from toist_tpu_torch.ops.flash_attention import attention_plain
+    from toist_tpu_torch.ops import matching
+    from toist_tpu_torch.train import criterion as crit
+    from toist_tpu_torch.train.cluster import ClusterBank
+    from toist_tpu_torch.train.distill import distillation_losses
+    from toist_tpu_torch.train.state import init_train_state, model_masters
+    from toist_tpu_torch.train.step import (accumulate_gradients,
+                                            train_batch_to_device)
+
+    cfg = Config.from_sources(None, {
+        "model": {"compute_dtype": "float32", "dropout": 0.0,
+                  "resizer_dropout": 0.0},
+        "loss": {"distillation": True, "softkd_loss": True,
+                 "nsthl2_loss": True, "cluster": True}})
+    wd = crit.build_weight_dict(cfg.loss, False, cfg.model.dec_layers)
+    student = TOIST.from_state_dict(student_sd, cfg.model, device="cuda")
+    teacher = TOIST.from_state_dict(teacher_sd, cfg.model, device="cuda")
+    x = train_batch_to_device(batch, "cuda")
+    solves = []
+
+    def total_cost(cost, a, n):
+        rows = torch.arange(int(n))
+        return cost[rows, a[:int(n)].long()].sum().item()
+
+    def recording(cost, n):
+        got = lsa.solve_lsa_batch(cost, n)
+        solves.append([t.detach().cpu() for t in (cost, n, got)]
+                      + [lsa.solve_lsa_batch_plain(cost, n).cpu()])
+        return got
+
+    replayed = []
+
+    def replaying(cost, n):
+        c_k, n_k, a_k, _ = solves[len(replayed)]
+        a_p = lsa.solve_lsa_batch_plain(cost, n).cpu()    # numpy, host
+        gaps = [abs(total_cost(c_k[i], a_k[i], n_k[i])
+                    - total_cost(c_k[i], a_p[i], n_k[i]))
+                / max(1.0, abs(total_cost(c_k[i], a_k[i], n_k[i])))
+                for i in (a_k != a_p).any(-1).nonzero().flatten().tolist()]
+        replayed.append(gaps)
+        return a_k.to(cost.device)
+
+    def run(fused, solve):
+        for m in (student, teacher):
+            set_fused_attention(m, fused)
+        st = init_train_state(student, cfg, 1, 1, teacher=teacher,
+                              cluster_bank=ClusterBank(**{
+                                  f.name: getattr(bank0, f.name).clone()
+                                  for f in dataclasses.fields(bank0)}))
+        old = (matching.solve_lsa_batch, crit.solve_lsa_batch)
+        matching.solve_lsa_batch = crit.solve_lsa_batch = solve
+        try:
+            reset_counts()
+            sc = accumulate_gradients(st, x, cfg, wd, distillation_losses)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            matching.solve_lsa_batch, crit.solve_lsa_batch = old
+        grads = {(w, n): m.grad.detach().clone()
+                 for w, t in (("student", False), ("teacher", True))
+                 for n, _, m in model_masters(st, t)}
+        for _, m in st.masters:
+            m.grad = None
+        return {k: float(v) for k, v in sc.items()}, grads, counts
+
+    lk, gk, with_kernels = run(True, recording)
+    lp, gp, without = run(False, replaying)
+    replayed_f32 = list(replayed)
+    replayed.clear()
+    layers.attention_plain = _attention_f64
+    try:
+        l64, g64, _ = run(False, replaying)
+    finally:
+        layers.attention_plain = attention_plain
+    replayed[:] = replayed_f32
+    solver = []
+    for (c, n, got, plain), name in zip(solves, ("noun matcher",
+                                                 "sth matcher", "softkd")):
+        differ = (got != plain).any(-1).nonzero().flatten().tolist()
+        gap = max((abs(total_cost(c[i], got[i], n[i])
+                       - total_cost(c[i], plain[i], n[i]))
+                   / max(1.0, abs(total_cost(c[i], plain[i], n[i])))
+                   for i in differ), default=0.0)
+        solver.append({"site": name, "shape": list(c.shape),
+                       "problems_differing": len(differ),
+                       "their_max_rel_cost_gap": gap})
+    def rel_loss(a, b):
+        return abs(a - b) / max(abs(b), LOSS_ABS)
+
+    # The losses (the cardinality errors are counts, for logging), each
+    # beside its f32 floor.
+    loss_errs = {k: (rel_loss(lk[k], lp[k]), rel_loss(lp[k], l64[k]))
+                 for k in lk if "loss" in k}
+    loss_err = max(e for e, _ in loss_errs.values())
+    first_sa = "transformer.decoder.layers.0.self_attn.in_proj_weight"
+    zero = [k for k in gp if k[1].endswith(".key.bias") or k[1] == first_sa]
+    partner = {k: (k[0], k[1][:-len("weight")] + "bias"
+                   if k[1].endswith("weight") else
+                   k[1][:-len("bias")] + "weight") for k in zero}
+    noise = max((max(g[k].abs().max().item() for g in (gk, gp))
+                 / gp[partner[k]].abs().max().item() for k in zero),
+                default=0.0)
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-12)
+
+    grad_errs = sorted((rel(gk[k], gp[k]), k) for k in gp if k not in zero)
+    floor = {k: rel(gp[k], g64[k]) for _, k in grad_errs}
+    over = [(e, k) for e, k in grad_errs
+            if e > STEP_GRAD_TOL and e > 2 * floor[k]]
+    want = {k: 2 * LAUNCHES_PER_FORWARD for k in ("fwd", "dkv", "dq")}
+    want.update(fwd_tc=0, dkv_tc=0, dq_tc=0, dropout=0, lsa=3)
+    res = {"solver_vs_plain_on_same_costs": solver,
+           "problems_matched_differently_across_runs":
+               [len(g) for g in replayed],
+           "their_max_rel_cost_gap": max((x for g in replayed for x in g),
+                                         default=0.0),
+           "total_loss": {"kernels": lk["loss"], "plain": lp["loss"]},
+           "kd_losses": {k: [lk[k], lp[k]] for k in KD_LOSSES},
+           "loss_max_rel_err": loss_err,
+           "loss_f32_floor": max(f for _, f in loss_errs.values()),
+           "kd_loss_errs_and_floors": {k: loss_errs[k] for k in KD_LOSSES},
+           "grad_max_rel_err": grad_errs[-1][0],
+           "worst_grads": [(e, "/".join(k)) for e, k in grad_errs[-8:]],
+           "grads_over_tol": [(e, floor[k], "/".join(k)) for e, k in
+                              grad_errs if e > STEP_GRAD_TOL],
+           "grads_over_tol_and_twice_floor": len(over),
+           "max_f32_floor": max(floor.values()),
+           "grads_compared": len(grad_errs), "zero_by_construction":
+               len(zero), "their_grad_over_partner_grad": noise,
+           "launches_with": with_kernels, "launches_without": without}
+    log(f"[distill-f32] kernels vs plain {json.dumps(res)} (tolerances: "
+        f"losses {LOSS_RTOL} of max(|loss|, {LOSS_ABS}), gradients "
+        f"{STEP_GRAD_TOL} or twice their f32 floor, zero by construction {ZERO_TOL}, cost gap 1e-4, solver "
+        f"ties 1e-5)")
+    if (len(solves) != 3 or len(replayed) != 3
+            or any(s["their_max_rel_cost_gap"] > 1e-5 for s in solver)
+            or solver[0]["problems_differing"]
+            or solver[1]["problems_differing"]
+            or res["their_max_rel_cost_gap"] > 1e-4
+            or loss_err > LOSS_RTOL or over
+            or noise > ZERO_TOL or set(gk) != set(gp)
+            or {w for w, _ in gk} != {"student", "teacher"}
+            or with_kernels != want or any(without.values())):
+        raise AssertionError(f"distillation step kernels vs plain: {res}")
+    return res
+
+
+def phase_ablation(smi):
+    """The port's distillation ablation module on the card, as a record
+    (the gate is the CPU test, tests/test_torch_distill_gate.py): the
+    verb-noun teacher, the plain and the distilled student, 6 epochs each
+    on its own fixture; their AP@0.5 and the margin."""
+    from toist_tpu_torch.scripts import fixture_distill_ablation as abl
+
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        res = abl.run(wd, epochs=abl.EPOCHS, device="cuda")
+        res["seconds"] = time.perf_counter() - t0
+    log(f"[ablation] {json.dumps(res)} | {smi}")
+    if not all(math.isfinite(res[k]) for k in (
+            "teacher_ap50", "plain_student_ap50", "distill_student_ap50")):
+        raise AssertionError(f"ablation: {res}")
+    return res
+
+
 def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.getcwd())
     import torch
+
+    from toist_tpu_torch.train import checkpoint as ckpt
 
     smi, has_pil = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1493,6 +2146,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         main_run = phase_main(smi, state_dict, root)
+        torch.cuda.empty_cache()
+        distill, dstate, dbatch, softkd = phase_distill(
+            smi, root, os.path.join(root, "main_out", "checkpoint"))
+        student_sd = ckpt.load_params(os.path.join(root,
+                                                   "seeded_weights.pth"))
+    torch.cuda.empty_cache()
+    # The f32 comparison takes seeded weights, the student's of phase 11 and
+    # a teacher from the next seed (what main builds without
+    # run.load_noun), and run 1's bank: after one epoch at the reference's
+    # loss weights, the contrastive heads' gradients of run 1's weights are
+    # sums that nearly cancel, so f32 rounding alone moves them by
+    # percents.
+    key = "transformer.text_encoder.embeddings.word_embeddings.weight"
+    teacher_sd = seeded_weights(SEED + 1)
+    teacher_sd[key] = teacher_sd[key][:student_sd[key].shape[0]]
+    distill["f32_kernel_vs_plain"] = phase_distill_kernel_vs_plain(
+        student_sd, teacher_sd, dstate.cluster_bank, dbatch)
+    del dstate
+    torch.cuda.empty_cache()
+    lsa_cases.append(lsa_case("real_softkd", softkd[0].cpu().numpy(),
+                              softkd[1].cpu().numpy(), "total", lsa_inputs))
+    times["lsa"]["real_softkd"] = lsa_time(smi, lsa_cases[-1], lsa_inputs)
+    ablation = phase_ablation(smi)
 
     serve = times["serving_encoder"]["bfloat16"][0.0]
     serve32 = times["serving_encoder"]["float32"][0.0]
@@ -1501,6 +2177,7 @@ def main() -> int:
     enc32 = times["train_encoder"]["float32"][0.0]
     lsa_main = times["lsa"]["continuous"]
     tl = train["launches"]
+    dl = distill["launches"]
     bf16_attn = [c for c in attn if c["dtype"] == "bfloat16"]
     f32_route = "toist_tpu_torch/csrc/flash_attn_bwd.cu"
 
@@ -1519,6 +2196,10 @@ def main() -> int:
         "train_launches": tl["fwd_tc"],
         # Phase 11: tensor-core forwards in main's evaluate (both runs).
         "eval_launches": main_run["eval_tc_launches"],
+        # Phase 12: distillation through main (24 per training step, 12
+        # per cluster-eval batch), and its cluster evals alone.
+        "distill_launches": dl["fwd_tc"],
+        "distill_eval_launches": distill["eval_tc_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases
                            if c["dtype"] == "bfloat16"),
         "ms": serve["fwd"],
@@ -1549,6 +2230,7 @@ def main() -> int:
         "source": "toist_tpu_torch/csrc/attn_dropout.cuh",
         "replaces": "toist_tpu/ops/flash_attention.py:102",
         "launches": tl["dropout"],
+        "distill_launches": dl["dropout"],
         "max_abs_err": max(c["max_abs_err"] for c in attn if c["rate"]),
         # The tensor-core forward at rate 0.1, and what the rate adds to
         # each of the three kernels (bf16, training encoder shape).
@@ -1564,6 +2246,7 @@ def main() -> int:
         "source": "toist_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "replaces": "toist_tpu/ops/flash_attention.py:147",
         "launches": tl["dkv_tc"],
+        "distill_launches": dl["dkv_tc"],
         "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dkv"],
         "ms_rate_0.1": enc[DROP_RATE]["dkv"],
@@ -1583,6 +2266,7 @@ def main() -> int:
         "source": "toist_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "replaces": "toist_tpu/ops/flash_attention.py:193",
         "launches": tl["dq_tc"],
+        "distill_launches": dl["dq_tc"],
         "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dq"],
         "ms_rate_0.1": enc[DROP_RATE]["dq"],
@@ -1598,6 +2282,9 @@ def main() -> int:
         "source": "toist_tpu_torch/csrc/lsa.cu",
         "replaces": "toist_tpu/ops/lsa_pallas.py:35",
         "launches": tl["lsa"],
+        # Phase 12: 3 per distillation step (the noun and sth matchers, the
+        # softkd re-pairing), 1 per cluster-eval batch.
+        "distill_launches": dl["lsa"],
         "max_abs_err": 0,
         "ms": lsa_main["ms"],
         "plain_ms": lsa_main["plain_ms"],
@@ -1613,7 +2300,12 @@ def main() -> int:
                                         "profile")},
         "main": {k: main_run[k] for k in ("eval_runs", "mean_ap50",
                                           "checkpoints", "launches",
-                                          "train_steps")}}
+                                          "train_steps")},
+        "distill": {k: distill[k] for k in (
+            "eval_runs", "mean_ap50", "checkpoints", "launches",
+            "train_steps", "pairs_s", "peak_gib", "profile", "cluster",
+            "bank_update_count", "f32_kernel_vs_plain")},
+        "ablation": ablation}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

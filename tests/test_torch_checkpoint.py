@@ -10,7 +10,11 @@ utils/convert.load_reference_checkpoint) on the CPU.
   weights gives the port model's outputs within the full-model tolerance
   2e-3;
 - the port's ``load_reference_checkpoint`` reads a reference-style payload
-  (``argparse.Namespace`` args, DDP prefixes, empty ``model_ema``).
+  (``argparse.Namespace`` args, DDP prefixes, empty ``model_ema``);
+- a distillation checkpoint has the reference's keys (the teacher as
+  ``model_noun`` and ``model_noun_ema``, the bank as ``cluster_criterion``),
+  restores bit for bit and steps on as the live state does, and both
+  packages read its ``model`` and ``model_noun``.
 """
 import argparse
 import dataclasses
@@ -27,10 +31,13 @@ from toist_tpu.utils import convert as jconvert
 from toist_tpu_torch import config as pconfig
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.train import checkpoint as ckpt
+from toist_tpu_torch.train.cluster import init_bank
 from toist_tpu_torch.train.criterion import build_weight_dict
+from toist_tpu_torch.train.distill import make_distillation_train_step
 from toist_tpu_torch.train.state import init_train_state
 from toist_tpu_torch.train.step import make_train_step
-from toist_tpu_torch.utils.convert import (load_reference_checkpoint,
+from toist_tpu_torch.utils.convert import (jax_params_to_state_dict,
+                                           load_reference_checkpoint,
                                            synth_reference_state_dict)
 
 TINY = ModelConfig(backbone="resnet18-test", hidden_dim=64, nheads=4,
@@ -92,15 +99,28 @@ def _state(cfg, sd=None):
 
 def _assert_states_equal(a, b):
     assert a.step == b.step
+    assert len(a.masters) == len(b.masters)
     for (pa, ma), (pb, mb) in zip(a.masters, b.masters):
         assert pa.dtype == pb.dtype
         assert torch.equal(pa, pb) and torch.equal(ma, mb)
-    for (na, ta), (nb, tb) in zip(a.model.state_dict().items(),
-                                  b.model.state_dict().items()):
-        assert na == nb and torch.equal(ta, tb), na
-    assert list(a.ema) == list(b.ema)
-    for n in a.ema:
-        assert torch.equal(a.ema[n], b.ema[n]), n
+    for ma, mb in ((a.model, b.model), (a.teacher, b.teacher)):
+        assert (ma is None) == (mb is None)
+        if ma is None:
+            continue
+        for (na, ta), (nb, tb) in zip(ma.state_dict().items(),
+                                      mb.state_dict().items()):
+            assert na == nb and torch.equal(ta, tb), na
+    for ea, eb in ((a.ema, b.ema), (a.teacher_ema, b.teacher_ema)):
+        assert (ea is None) == (eb is None)
+        assert list(ea or ()) == list(eb or ())
+        for n in ea or ():
+            assert torch.equal(ea[n], eb[n]), n
+    assert (a.cluster_bank is None) == (b.cluster_bank is None)
+    if a.cluster_bank is not None:
+        for f in dataclasses.fields(a.cluster_bank):
+            ta = getattr(a.cluster_bank, f.name)
+            tb = getattr(b.cluster_bank, f.name)
+            assert ta.dtype == tb.dtype and torch.equal(ta, tb), f.name
     sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
     assert sa["param_groups"] == sb["param_groups"]
     assert set(sa["state"]) == set(sb["state"])
@@ -244,3 +264,75 @@ def test_load_reference_checkpoint_of_a_reference_payload(tmp_path):
     for k, v in model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), sd[k], err_msg=k)
     assert ckpt.load_params(path).keys() == got.keys()
+
+
+DIS_LOSS = {"distillation": True, "softkd_loss": True, "nsthl2_loss": True,
+            "nsthl2_coef": 1.0, "cluster": True, "cluster_memory_size": 8,
+            "cluster_num": 2, "kmeans_max_iters": 4}
+
+
+def _paired(seed):
+    """A distillation pair from ``_batch``: the student's captions differ
+    and carry the "something" span."""
+    noun = _batch(seed)
+    sth = {k: v.copy() for k, v in noun.items()}
+    sth["text_ids"] = np.where(sth["text_mask"], 1,
+                               (noun["text_ids"] * 3) % (VOCAB - 3) + 3)
+    b, n = noun["box_valid"].shape
+    for x, span in ((noun, (1, 2)), (sth, (2, 2))):
+        x["noun_token_spans"] = np.full((b, n, 2), -1, np.int32)
+        x["noun_token_spans"][:, :2] = span
+        x["caption_noun_span"] = np.tile(np.array(span, np.int32), (b, 1))
+        x["task_id"] = np.array([1, 2, 1], np.int32)[:b]
+    return {"noun": noun, "sth": sth}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_distillation_checkpoint(tmp_path, dtype):
+    """Two distillation steps (dropout 0.1), then save: the payload has the
+    reference's distillation keys; the restored state equals the live one
+    bit for bit (student, teacher, both EMAs, AdamW over both, bank, step)
+    and takes the next step as the live one does; both packages read its
+    ``model`` and ``model_noun``."""
+    cfg = pconfig.Config.from_sources(None, {
+        "model": dataclasses.asdict(dataclasses.replace(
+            TINY, compute_dtype=dtype)), "loss": DIS_LOSS})
+    wd = build_weight_dict(cfg.loss, False, 2)
+    step = make_distillation_train_step(cfg, wd)
+    teacher = TOIST.from_state_dict(_sd(6), cfg.model, device="cpu")
+    bank = init_bank(14, 8, 2, 64, torch.Generator().manual_seed(0))
+    model = TOIST.from_state_dict(_sd(), cfg.model, device="cpu")
+    state = init_train_state(model, cfg, 10, 100, teacher=teacher,
+                             cluster_bank=bank)
+    for seed in (1, 2):
+        state, _ = step(state, _paired(seed))
+    path = str(tmp_path / "checkpoint")
+    ckpt.save(path, state, epoch=1, args=cfg.to_dict())
+    payload = torch.load(path, weights_only=True)
+    assert set(payload) == {"model", "model_ema", "model_noun",
+                            "model_noun_ema", "optimizer", "epoch", "step",
+                            "args", "cluster_criterion"}
+    assert set(payload["cluster_criterion"]) == {
+        "feature_bank", "cluster_centers", "update_count", "full"}
+    assert payload["cluster_criterion"]["update_count"][:2].tolist() == [4, 2]
+    restored, epoch = ckpt.restore(path, cfg, 10, 100, device="cpu")
+    assert epoch == 1
+    _assert_states_equal(restored, state)
+    state, sc = step(state, _paired(3))
+    restored, sc2 = step(restored, _paired(3))
+    _assert_states_equal(restored, state)
+    assert float(sc["loss"]) == float(sc2["loss"])
+
+    for key in ("model", "model_noun"):
+        one = str(tmp_path / f"{key}.pth")
+        torch.save({"model": payload[key]}, one)
+        sd = load_reference_checkpoint(one, prefer_ema=False)
+        params, frozen = jconvert.load_reference_checkpoint(
+            one, prefer_ema=False, d_model=64, enc_layers=2, dec_layers=2,
+            stage_sizes=(1, 1, 1, 1))
+        back = jax_params_to_state_dict(params, frozen)
+        assert set(sd) == set(payload[key]) >= set(back)
+        for k, v in back.items():
+            assert torch.equal(v, sd[k]), (key, k)
+    assert not torch.equal(payload["model"]["query_embed.weight"],
+                           payload["model_noun"]["query_embed.weight"])

@@ -374,3 +374,83 @@ def test_evaluate_double_buffer_hands_each_batch_its_results(cuda, tmp_path,
             for c, m in enumerate((1, 2, 3, 4)):
                 np.testing.assert_array_equal(boxes[r, :, c],
                                               (i * m + q) * 10.0)
+
+
+def _cluster_case(seed=0, B=3, S_img=40, T=16, D=256, N=4):
+    rng = np.random.default_rng(seed)
+    tm = rng.normal(size=(B, T, D)).astype(np.float32)
+    mem = np.concatenate([rng.normal(size=(B, S_img, D)), tm], 1)
+    spans = np.full((B, N, 2), -1, np.int32)
+    spans[:2, :2] = [3, 4]
+    bv = np.zeros((B, N), bool)
+    bv[:2, :2] = True
+    batch = {"noun_token_spans": spans, "box_valid": bv,
+             "caption_noun_span": np.array([[3, 4], [5, 5], [2, 6]],
+                                           np.int32),
+             "sample_valid": np.array([True, True, False]),
+             "task_id": np.array([1, 1, 0], np.int32)}
+    cache = {"text_memory": tm, "img_memory": mem.astype(np.float32)}
+    return cache, batch
+
+
+def test_cluster_bank_on_the_card_matches_the_cpu_without_a_sync(cuda):
+    """The bank update, the k-means and the snapping at the distillation
+    shapes (a [14, 1024, 256] bank, K 3, 32 iterations) queue on the card
+    with no host sync (set_sync_debug_mode "error" raises on one) and give
+    the CPU's centers within 1e-4 and its choices."""
+    from toist_tpu_torch.train import cluster as cl
+
+    cache, batch = _cluster_case()
+    bank = cl.init_bank(14, 1024, 3, 256, torch.Generator().manual_seed(0))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        b = cl.ClusterBank(**{k: v.to(dev) for k, v in vars(bank).items()})
+        c = {k: torch.from_numpy(v).to(dev) for k, v in cache.items()}
+        x = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            b, t_mod, t_aux = cl.teacher_update_and_snap(b, c, x, 32)
+            b, s_mod, s_aux = cl.student_cluster(b, c, x, 32, train=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        results[dev] = (b, t_mod, s_mod, t_aux["choices"], s_aux["choices"],
+                        s_aux["loss_cluster_feature"])
+    cpu, gpu = results["cpu"], results["cuda"]
+    for k in ("update_count", "full"):
+        assert torch.equal(getattr(cpu[0], k), getattr(gpu[0], k).cpu()), k
+    for k in ("feature_bank", "cluster_centers"):   # f32 sums, other order
+        torch.testing.assert_close(getattr(gpu[0], k).cpu(),
+                                   getattr(cpu[0], k), atol=1e-4, rtol=1e-4)
+    for a, b in zip(cpu[1:3], gpu[1:3]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    assert torch.equal(cpu[3], gpu[3].cpu()) and torch.equal(cpu[4],
+                                                            gpu[4].cpu())
+    torch.testing.assert_close(gpu[5].cpu(), cpu[5], rtol=1e-4, atol=0)
+
+
+def test_softkd_on_the_card_launches_the_lsa_kernel(cuda):
+    """All decoder levels' softkd re-pairing in one solve of [L*B, 100,
+    100]: one LSA kernel launch, the CPU's loss (plain solver) within
+    1e-5."""
+    from toist_tpu_torch.train.criterion import loss_softkd_levels
+
+    rng = np.random.default_rng(1)
+    L, B, Q, N = 6, 3, 100, 25
+    logits = rng.normal(size=(2, L, B, Q, 256)).astype(np.float32)
+    boxes = np.concatenate([rng.uniform(0.2, 0.8, (2, L, B, Q, 2)),
+                            rng.uniform(0.05, 0.4, (2, L, B, Q, 2))], -1)
+    bv = np.zeros((B, N), bool)
+    bv[:, :3] = True
+    t2q = np.stack([np.stack([np.stack([np.where(
+        bv[b], rng.permutation(Q)[:N], -1) for b in range(B)])
+        for _ in range(L)]) for _ in range(2)]).astype(np.int32)
+    args = [logits[0], logits[1], boxes[0].astype(np.float32),
+            boxes[1].astype(np.float32), t2q[0], t2q[1], bv,
+            np.ones(B, bool)]
+    want = loss_softkd_levels(*(torch.from_numpy(a) for a in args))
+    before = solve_lsa_batch.launches
+    got = loss_softkd_levels(*(torch.from_numpy(a).cuda() for a in args))
+    assert solve_lsa_batch.launches - before == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)

@@ -10,7 +10,11 @@ the command line) gives the last in-run eval's per-task stats exactly, and
 (a random model's AP at this size is mostly 0, so the detections are what
 shows that the same weights came back).
 ``parse_args`` gives the JAX ``parse_args``'s config on the same argv; each
-mode that the port does not run yet raises.
+mode that the port does not run yet raises. Distillation with softkd,
+nsthl2 and the cluster bank, its teacher through ``run.load_noun``: one
+epoch writes the distillation checkpoint and evaluates with the cluster
+snapping; ``--eval --resume`` restores the state bit for bit and gives the
+in-run eval's stats.
 """
 import json
 import os
@@ -163,15 +167,80 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize("mode", [
-    ("loss", "distillation", True), ("loss", "cluster", True),
-    ("run", "load_noun", "teacher.pth"), ("model", "mask_model", "smallconv"),
+    ("model", "mask_model", "smallconv"),
     ("run", "mesh_shape", [2]), ("run", "profile_dir", "trace"),
     ("run", "pretrained_backbone", "r101.pth"),
     ("run", "pretrained_text", "roberta.pth")])
 def test_unported_modes_raise(mode):
     sec, key, val = mode
     over = {sec: {key: val}}
-    if key == "distillation":
-        over["loss"]["softkd_loss"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         main(Config.from_sources(None, over), device="cpu")
+
+
+def test_distillation_main_trains_and_resumes(tmp_path, monkeypatch):
+    import dataclasses
+
+    import toist_tpu_torch.main as pmain
+    from toist_tpu_torch.train import checkpoint as ckpt
+
+    root = generate_fixture(str(tmp_path / "data"), num_tasks=2,
+                            imgs_per_split=4, img_size=(96, 128), seed=1)
+    out = str(tmp_path / "out")
+    over = _overrides(root, out, "frozen_bn")
+    over["optim"]["epochs"] = 1
+    over["loss"] = {"distillation": True, "softkd_loss": True,
+                    "nsthl2_loss": True, "nsthl2_coef": 1.0,
+                    "cluster": True, "cluster_memory_size": 8,
+                    "cluster_num": 2, "kmeans_max_iters": 4}
+    _warm_start(str(tmp_path / "teacher.pth"),
+                Config.from_sources(None, over))
+    over["run"]["load_noun"] = str(tmp_path / "teacher.pth")
+    states, make = [], pmain.make_distillation_train_step
+
+    def keeping(cfg, weight_dict):
+        step = make(cfg, weight_dict)
+
+        def train_step(state, batch):
+            states.append(state)
+            return step(state, batch)
+        return train_step
+
+    monkeypatch.setattr(pmain, "make_distillation_train_step", keeping)
+    runs = _record_detections(monkeypatch)
+    cfg = Config.from_sources(None, over)
+    main(cfg, device="cpu")
+    state = states[-1]
+    assert {"BEST_checkpoint", "checkpoint", "log.jsonl"} <= set(
+        os.listdir(out))
+    # The teacher came from run.load_noun (the warm start's query
+    # embeddings, before the step moved them a little).
+    teacher_sd = torch.load(str(tmp_path / "teacher.pth"))["model"]
+    moved = (state.teacher.query_embed.weight.detach()
+             - teacher_sd["query_embed.weight"]).abs().max()
+    assert 0 < moved < 0.1
+    log = _log(out)
+    steps = [r for r in log if r["kind"] == "train_step"]
+    for key in ("loss_softkd", "loss_softkd_0", "loss_nsthl2",
+                "loss_cluster_feature", "noun_loss_ce", "sth_loss_ce"):
+        assert np.isfinite(steps[0][key]), key
+    assert len(steps[-1]["bank_update_count"]) == 14
+    assert sum(steps[-1]["bank_update_count"]) == 8     # 8 images x 1 noun
+    [ev] = [r for r in log if r["kind"] == "eval"]
+    assert runs == []          # the cluster eval step, not the plain one
+
+    # The saved state restores bit for bit; --eval --resume gives the
+    # in-run eval's stats.
+    from tests.test_torch_checkpoint import _assert_states_equal
+    n = len(states)
+    restored, epoch = ckpt.restore(os.path.join(out, "checkpoint"), cfg,
+                                   n, n, device="cpu")
+    assert epoch == 0
+    _assert_states_equal(restored, state)
+    assert restored.cluster_bank.update_count.sum() == 8
+    resumed = dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, eval_only=True, resume=os.path.join(out, "checkpoint"),
+        output_dir=str(tmp_path / "eval_resume")))
+    assert main(resumed, device="cpu") == ev["mean_ap50"]
+    [again] = _log(str(tmp_path / "eval_resume"))
+    assert again["per_task"] == ev["per_task"]

@@ -525,3 +525,19 @@ def test_train_one_epoch_stops_on_non_finite_loss():
     with pytest.raises(SystemExit) as e:
         train_one_epoch(nan_step, State(), Iter(), 0)
     assert e.value.code == 1
+
+
+def test_train_step_puts_the_model_in_training_mode(tiny):
+    """A model handed over in eval mode (as ``from_state_dict`` gives it)
+    trains with its dropout on: the step's loss is not the eval loss."""
+    cfg = pconfig.Config(model=dataclasses.replace(PTINY, dropout=0.1,
+                                                   resizer_dropout=0.1))
+    wd = pcrit.build_weight_dict(cfg.loss, False, 2)
+    batch = {k: _t(v) for k, v in _tiny_batch().items()}
+    state = _port_state(tiny[0], cfg)
+    assert not state.model.training
+    with torch.no_grad():
+        eval_loss = float(forward_losses(state.model, batch, cfg, wd)[0])
+    sc = accumulate_gradients(state, batch, cfg, wd)
+    assert state.model.training
+    assert float(sc["loss"]) != eval_loss

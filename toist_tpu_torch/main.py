@@ -1,5 +1,6 @@
-"""Training / evaluation driver for plain detection (the reference's
-main.py:277-742; counterpart of ``toist_tpu/main.py``).
+"""Training / evaluation entry point for detection and noun-pronoun
+distillation (the reference's main.py:277-742; counterpart of
+``toist_tpu/main.py``).
 
 Workflow: config -> tokenizer (HF vocab files if present, else a BPE trained
 on the dataset's closed caption vocabulary) -> per-task datasets -> model ->
@@ -7,6 +8,12 @@ TrainState (fresh from ``init_like_jax`` / --load warm start / --resume) ->
 epoch loop with a checkpoint every epoch, an eval every eval_skip epochs (on
 the EMA weights when EMA is on) and the best checkpoint by mean AP@0.5
 (main.py:599-738). ``--eval`` evaluates once and returns the mean AP@0.5.
+
+Distillation (``loss.distillation``) trains a teacher on "verb + noun"
+captions beside the student on "verb + something" captions, from paired
+batches: the teacher is a second model from ``run.seed + 1``, or the
+weights of ``run.load_noun``. ``loss.cluster`` adds the cluster bank, and
+the eval then snaps the "something" span to its cluster center.
 
 Run:  python -m toist_tpu_torch.main --config configs/fixture.json \\
           [--eval] [--resume P] [--load P] [--output-dir D] [--set k=v ...]
@@ -31,13 +38,16 @@ from toist_tpu_torch.config import Config
 from toist_tpu_torch.data.batcher import (BatchIterator, BucketSpec,
                                           default_buckets, train_buckets)
 from toist_tpu_torch.data.captions import build_tokenizer
-from toist_tpu_torch.data.cocotasks import build_task_dataset
+from toist_tpu_torch.data.cocotasks import TASKS, build_task_dataset
 from toist_tpu_torch.eval.evaluator import mean_ap50
 from toist_tpu_torch.models.init import init_like_jax
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.train import checkpoint as ckpt
 from toist_tpu_torch.train import engine
+from toist_tpu_torch.train.cluster import init_bank
 from toist_tpu_torch.train.criterion import build_weight_dict
+from toist_tpu_torch.train.distill import (make_cluster_eval_step,
+                                           make_distillation_train_step)
 from toist_tpu_torch.train.state import init_train_state, load_masters
 from toist_tpu_torch.train.step import make_eval_step, make_train_step
 from toist_tpu_torch.utils.dist import process_count
@@ -74,9 +84,6 @@ def check_ported(cfg: Config) -> None:
     """Raise on a configuration that the JAX ``main`` runs and the port
     does not run yet."""
     unported = [
-        (cfg.loss.distillation, "loss.distillation", 5),
-        (cfg.loss.cluster, "loss.cluster", 5),
-        (bool(cfg.run.load_noun), "run.load_noun", 5),
         (cfg.model.masks, "model.masks", 6),
         (process_count() > 1
          or any(n not in (-1, 1) for n in cfg.run.mesh_shape),
@@ -116,7 +123,8 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
 
     train_sets = []
     if not cfg.run.eval_only:
-        train_sets = [build_task_dataset(cfg.data, t, "train", tokenizer)
+        train_sets = [build_task_dataset(cfg.data, t, "train", tokenizer,
+                                         distillation=cfg.loss.distillation)
                       for t in cfg.data.tasks]
     val_sets = {t: build_task_dataset(cfg.data, t, "val", tokenizer)
                 for t in cfg.data.tasks}
@@ -130,7 +138,7 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
             train_sets, train_spec,
             batch_size=(cfg.optim.train_batch_size
                         * cfg.optim.grad_accum_steps),
-            seed=cfg.run.seed, shuffle=True,
+            seed=cfg.run.seed, shuffle=True, paired=cfg.loss.distillation,
             num_workers=cfg.data.num_workers,
             worker_mode=cfg.data.worker_mode)
         steps_per_epoch = max(1, len(train_iter))
@@ -152,29 +160,50 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
                                           device)
         start_epoch += 1
     else:
-        with torch.device(device):
-            model = TOIST(cfg.model, text_vocab_size=tokenizer.vocab_size)
-        init_like_jax(model, torch.Generator(device).manual_seed(
-            cfg.run.seed))
+        model = _fresh_model(cfg, tokenizer, device, cfg.run.seed)
         if cfg.run.load:
             # Overlay: keys only in the fresh model keep their init
             # (reference --frozen_weights, main.py:475-489).
             model.load_state_dict(ckpt.merge_params(
                 model.state_dict(), ckpt.load_params(cfg.run.load,
                                                      prefer_ema=True)))
+        teacher = bank = None
+        if cfg.loss.distillation:
+            teacher = _fresh_model(cfg, tokenizer, device, cfg.run.seed + 1)
+            if cfg.run.load_noun:
+                teacher.load_state_dict(ckpt.load_params(cfg.run.load_noun,
+                                                         prefer_ema=True))
+        if cfg.loss.cluster:
+            bank = init_bank(len(TASKS), cfg.loss.cluster_memory_size,
+                             cfg.loss.cluster_num, cfg.model.hidden_dim,
+                             torch.Generator(device).manual_seed(
+                                 cfg.run.seed))
         # The f32 weights outlive the cast below: they become the masters.
         weights = model.state_dict()
         model.to_compute_dtype()
-        state = init_train_state(model, cfg, steps_per_epoch, total_steps)
+        tweights = None
+        if teacher is not None:
+            tweights = teacher.state_dict()
+            teacher.to_compute_dtype()
+        state = init_train_state(model, cfg, steps_per_epoch, total_steps,
+                                 teacher=teacher, cluster_bank=bank)
         load_masters(state, weights)
-        del weights
+        if teacher is not None:
+            load_masters(state, tweights, teacher=True)
+        del weights, tweights
 
     # The EMA is evaluated in a second model in the compute dtype, loaded
     # from the EMA before each eval; state.model keeps the trained weights.
     eval_model = state.model
     if cfg.optim.ema and state.ema is not None:
         eval_model = copy.deepcopy(state.model).eval()
-    eval_step = make_eval_step(eval_model, cfg, weight_dict)
+    if cfg.loss.cluster:
+        cluster_eval = make_cluster_eval_step(eval_model, cfg, weight_dict)
+
+        def eval_step(batch):
+            return cluster_eval(state.cluster_bank, batch)
+    else:
+        eval_step = make_eval_step(eval_model, cfg, weight_dict)
 
     def run_eval(epoch: int = 0) -> float:
         if eval_model is not state.model:
@@ -195,7 +224,8 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
     if cfg.run.eval_only:
         return run_eval()
 
-    train_step = make_train_step(cfg, weight_dict)
+    train_step = (make_distillation_train_step if cfg.loss.distillation
+                  else make_train_step)(cfg, weight_dict)
     best_map = -1.0
     for epoch in range(start_epoch, cfg.optim.epochs):
         t0 = time.time()
@@ -216,6 +246,14 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
                           args=cfg.to_dict())
     ckpt.wait_for_async_saves()
     return best_map
+
+
+def _fresh_model(cfg: Config, tokenizer, device: torch.device, seed: int
+                 ) -> TOIST:
+    """An f32 model on ``device`` with flax's initialisers from ``seed``."""
+    with torch.device(device):
+        model = TOIST(cfg.model, text_vocab_size=tokenizer.vocab_size)
+    return init_like_jax(model, torch.Generator(device).manual_seed(seed))
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -11,7 +11,9 @@ TrainState through orbax; the port writes the reference's own payload
   EMA is off);
 - ``optimizer``: ``torch.optim.AdamW.state_dict()`` (moments and step
   counts);
-- ``epoch``, ``step``, and ``args`` (the config as a dict).
+- ``epoch``, ``step``, and ``args`` (the config as a dict);
+- in distillation also ``model_noun`` and ``model_noun_ema``, the teacher's
+  (SURVEY.md:324-327), and ``cluster_criterion``, the bank's four tensors.
 
 So a port checkpoint is a reference ``.pth``: ``utils/convert.
 load_reference_checkpoint`` of either package reads it. A file is written
@@ -22,6 +24,7 @@ half a file. The three load modes map to ``restore`` (--resume),
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -30,8 +33,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from toist_tpu_torch.config import Config
+from toist_tpu_torch.train.cluster import ClusterBank
 from toist_tpu_torch.train.state import (TrainState, init_train_state,
-                                         load_masters, trainable_names)
+                                         load_masters, model_masters)
 from toist_tpu_torch.utils.convert import load_reference_checkpoint
 
 # One record per finished write: path, bytes, copy_s (device -> host, on the
@@ -41,15 +45,19 @@ _WRITER: Optional[ThreadPoolExecutor] = None
 _PENDING: Optional[Future] = None
 
 
-def full_state_dict(state: TrainState, ema: bool = False
-                    ) -> Dict[str, torch.Tensor]:
-    """The model's reference-layout state dict in f32 on its device: the
-    masters (or, with ``ema``, the EMA) for the trainable parameters, the
-    model's own tensors for the frozen parameters and the buffers."""
-    own = state.ema if ema else dict(
-        zip(trainable_names(state), (m for _, m in state.masters)))
+def full_state_dict(state: TrainState, ema: bool = False,
+                    teacher: bool = False) -> Dict[str, torch.Tensor]:
+    """The student's (or the teacher's) reference-layout state dict in f32
+    on its device: the masters (or, with ``ema``, the EMA) for the
+    trainable parameters, the model's own tensors for the frozen parameters
+    and the buffers."""
+    model = state.teacher if teacher else state.model
+    if ema:
+        own = state.teacher_ema if teacher else state.ema
+    else:
+        own = {n: m for n, _, m in model_masters(state, teacher)}
     return {k: own.get(k, v).detach().float()
-            for k, v in state.model.state_dict().items()}
+            for k, v in model.state_dict().items()}
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -67,9 +75,18 @@ def _host_payload(state: TrainState, epoch: int,
                       for i, s in opt["state"].items()},
             "param_groups": [dict(g) for g in opt["param_groups"]]},
         "epoch": epoch, "step": state.step, "args": args or {}}
-    if state.ema is not None:
-        payload["model_ema"] = {k: _host(v) for k, v in
-                                full_state_dict(state, ema=True).items()}
+    parts = [("model_ema", state.ema, False)]
+    if state.teacher is not None:
+        parts += [("model_noun", True, True),
+                  ("model_noun_ema", state.teacher_ema, True)]
+    for key, present, teacher in parts:
+        if present is not None:
+            payload[key] = {k: _host(v) for k, v in full_state_dict(
+                state, key.endswith("_ema"), teacher).items()}
+    if state.cluster_bank is not None:
+        payload["cluster_criterion"] = {
+            f.name: _host(getattr(state.cluster_bank, f.name))
+            for f in dataclasses.fields(ClusterBank)}
     return payload
 
 
@@ -121,13 +138,25 @@ def restore(path: str, cfg: Config, steps_per_epoch: int, total_steps: int,
     """Full training restore (--resume, main.py:491-531): the model in its
     compute dtype (the masters cast down), the f32 masters, the AdamW
     moments and step counts, the EMA and the step, with the schedules
-    rebuilt from ``cfg``. Returns (state, epoch)."""
+    rebuilt from ``cfg``; in distillation also the teacher, its EMA and the
+    cluster bank. Returns (state, epoch)."""
     from toist_tpu_torch.models.toist import TOIST
 
     payload = _load(path)
     model = TOIST.from_state_dict(payload["model"], cfg.model, device)
-    state = init_train_state(model, cfg, steps_per_epoch, total_steps)
+    teacher = bank = None
+    if "model_noun" in payload:
+        teacher = TOIST.from_state_dict(payload["model_noun"], cfg.model,
+                                        device)
+    if "cluster_criterion" in payload:
+        bank = ClusterBank(**{k: v.to(device) for k, v in
+                              payload["cluster_criterion"].items()})
+    state = init_train_state(model, cfg, steps_per_epoch, total_steps,
+                             teacher=teacher, cluster_bank=bank)
     load_masters(state, payload["model"], payload.get("model_ema"))
+    if teacher is not None:
+        load_masters(state, payload["model_noun"],
+                     payload.get("model_noun_ema"), teacher=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"])
@@ -135,8 +164,9 @@ def restore(path: str, cfg: Config, steps_per_epoch: int, total_steps: int,
 
 def load_params(path: str, prefer_ema: bool = True
                 ) -> Dict[str, torch.Tensor]:
-    """Weights-only warm start (--load, main.py:456-473: EMA key
-    preferred): the checkpoint's reference-layout state dict."""
+    """Weights-only warm start (--load, main.py:456-473, and the teacher's
+    --load_noun: EMA key preferred): the checkpoint's reference-layout
+    state dict."""
     return load_reference_checkpoint(path, prefer_ema=prefer_ema)
 
 

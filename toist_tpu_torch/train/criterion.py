@@ -7,8 +7,12 @@ cardinality error, and the bidirectional contrastive alignment loss, each
 normalised by the batch's valid-box count. All decoder levels are matched in
 one assignment solve (``ops/matching.hungarian_match_levels``). Inputs follow
 the batcher's ``Batch`` layout (padded targets with validity masks) and the
-``tgt2query`` convention (-1 for invalid targets). The softkd, nsthl2, focal,
-dice and mask losses belong to the distillation and segmentation slices.
+``tgt2query`` convention (-1 for invalid targets). Distillation adds the
+per-stream prefixes (``set_criterion(prefix="noun_")``), softkd (the
+teacher's binary object probabilities distilled into the student's on
+matched and on re-paired false-positive queries) and nsthl2 (the student's
+pooled "something" feature pulled to the teacher's pooled noun feature).
+The focal, dice and mask losses belong to the segmentation slice.
 """
 from __future__ import annotations
 
@@ -19,7 +23,10 @@ import torch.nn.functional as F
 
 from toist_tpu_torch.config import LossConfig
 from toist_tpu_torch.ops import box_ops
-from toist_tpu_torch.ops.matching import hungarian_match_levels
+from toist_tpu_torch.ops.lsa import solve_lsa_batch
+from toist_tpu_torch.ops.matching import (hungarian_match_levels,
+                                          query_is_matched)
+from toist_tpu_torch.train.cluster import pool_span_features
 
 
 def _gather_queries(arr: torch.Tensor, tgt2query: torch.Tensor
@@ -126,13 +133,15 @@ def compute_num_boxes(box_valid: torch.Tensor,
 
 def set_criterion(outputs: Mapping[str, torch.Tensor],
                   batch: Mapping[str, torch.Tensor], cfg: LossConfig,
-                  matching: Optional[torch.Tensor] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  matching: Optional[torch.Tensor] = None,
+                  prefix: str = "") -> Dict[str, torch.Tensor]:
     """Main + aux losses of one model stream (``criterion.py:181-253``).
 
     Returns the unweighted losses keyed like the reference ("loss_ce",
     "loss_bbox", ..., "loss_ce_0", ...), plus the matching of each level
-    under "_tgt2query" (main) and "_tgt2query_{i}" (aux level i).
+    under "_tgt2query" (main) and "_tgt2query_{i}" (aux level i). A
+    distillation stream's ``prefix`` ("noun_", "sth_") goes before each
+    loss key, and its matchings are "_{prefix}tgt2query{suffix}".
     ``batch["num_boxes_override"]``, when present, replaces the batch's
     valid-box count (gradient accumulation passes global / accum).
     ``matching`` ([L, B, N], aux levels then main, as
@@ -164,19 +173,20 @@ def set_criterion(outputs: Mapping[str, torch.Tensor],
     losses: Dict[str, torch.Tensor] = {}
 
     def one_level(logits, pboxes, proj_q, suffix, t2q):
-        losses[f"loss_ce{suffix}"] = loss_labels(
+        losses[f"{prefix}loss_ce{suffix}"] = loss_labels(
             logits, pm, t2q, bv, sv, cfg.eos_coef, num_boxes)
-        losses[f"loss_bbox{suffix}"], losses[f"loss_giou{suffix}"] = \
-            loss_boxes(pboxes, boxes, t2q, bv, num_boxes)
-        losses[f"cardinality_error{suffix}"] = loss_cardinality(logits, bv,
-                                                                sv)
+        (losses[f"{prefix}loss_bbox{suffix}"],
+         losses[f"{prefix}loss_giou{suffix}"]) = loss_boxes(
+             pboxes, boxes, t2q, bv, num_boxes)
+        losses[f"{prefix}cardinality_error{suffix}"] = loss_cardinality(
+            logits, bv, sv)
         if proj_q is not None:
-            losses[f"loss_contrastive_align{suffix}"] = \
+            losses[f"{prefix}loss_contrastive_align{suffix}"] = \
                 loss_contrastive_align(
                     proj_q, outputs["proj_tokens"], pm, t2q, bv,
                     batch["text_mask"], batch["sample_valid"],
                     cfg.temperature_NCE, num_boxes)
-        losses[f"_tgt2query{suffix}"] = t2q
+        losses[f"_{prefix}tgt2query{suffix}"] = t2q
 
     proj_q = outputs.get("proj_queries")
     one_level(outputs["pred_logits"], outputs["pred_boxes"], proj_q, "",
@@ -189,6 +199,128 @@ def set_criterion(outputs: Mapping[str, torch.Tensor],
                       outputs["aux_pred_boxes"][i], aux_pq, f"_{i}",
                       t2q_lvl[i])
     return losses
+
+
+def _binary_prob(logits: torch.Tensor) -> torch.Tensor:
+    """Soft binary target [P(any object), P(no object)] (mdetr.py:555-556)."""
+    p = torch.softmax(logits.float(), dim=-1)
+    return torch.stack([p[..., :-1].sum(-1), p[..., -1]], -1)
+
+
+def _kl2(p_tgt: torch.Tensor, p_src: torch.Tensor) -> torch.Tensor:
+    """KL(p_tgt || p_src) over the last (2-class) axis, eps-guarded."""
+    eps = 1e-10
+    return (p_tgt * (torch.log(p_tgt + eps) - torch.log(p_src + eps))).sum(-1)
+
+
+def _take_rows(arr: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """arr [B, Q, K], order [B, Q] -> arr rows in that order."""
+    return torch.gather(arr, 1, order[..., None].expand(-1, -1,
+                                                        arr.shape[-1]))
+
+
+def _softkd_per_image(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
+                      noun_boxes: torch.Tensor, sth_boxes: torch.Tensor,
+                      t2q_noun: torch.Tensor, t2q_sth: torch.Tensor,
+                      box_valid: torch.Tensor,
+                      sample_valid: torch.Tensor) -> torch.Tensor:
+    """Per-image softkd [(sum TP KL + sum FP KL) / Q], shape [B]
+    (``criterion.py:268-340``, reference mdetr.py:520-599).
+
+    TP pairs: the queries the two streams matched to the same target. FP
+    pairs: each stream's unmatched queries, compacted to the front in
+    order, re-paired by one assignment solve over KL + L1 - GIoU (unit
+    weights); columns past a row's count cost 1e6. The solve is
+    ``ops/lsa.solve_lsa_batch``: the kernel for CUDA tensors, the plain
+    version for CPU ones. KL(teacher || student) per pair; the teacher's
+    probabilities and the solve's inputs are detached."""
+    B, Q = noun_logits.shape[:2]
+    bi_noun = _binary_prob(noun_logits).detach()                   # [B,Q,2]
+    bi_sth = _binary_prob(sth_logits)
+    bv = box_valid & sample_valid[:, None]
+
+    tp_kl = _kl2(_gather_queries(bi_noun, t2q_noun),
+                 _gather_queries(bi_sth, t2q_sth)) * bv            # [B, N]
+
+    # Unmatched queries first, in query order (a stable sort of the flags).
+    ord_noun = torch.argsort(query_is_matched(t2q_noun, Q).to(torch.int8),
+                             dim=-1, stable=True)
+    ord_sth = torch.argsort(query_is_matched(t2q_sth, Q).to(torch.int8),
+                            dim=-1, stable=True)
+    fpn_bi, fps_bi = _take_rows(bi_noun, ord_noun), _take_rows(bi_sth,
+                                                                ord_sth)
+    fpn_box = _take_rows(noun_boxes.float(), ord_noun)
+    fps_box = _take_rows(sth_boxes.float(), ord_sth)
+    n_fp = Q - bv.sum(-1)                                          # [B]
+
+    # Cost [B, Q (sth rows), Q (noun cols)]: KL(noun || sth) + L1 - GIoU.
+    c_kl = (fpn_bi[:, None, :, :] * (torch.log(fpn_bi[:, None, :, :] + 1e-10)
+                                     - torch.log(fps_bi[:, :, None, :]
+                                                 + 1e-10))).sum(-1)
+    c_l1 = (fps_box[:, :, None, :] - fpn_box[:, None, :, :]).abs().sum(-1)
+    c_giou = -box_ops.generalized_box_iou(box_ops.box_cxcywh_to_xyxy(fps_box),
+                                          box_ops.box_cxcywh_to_xyxy(fpn_box))
+    cost = c_kl + c_l1 + c_giou
+    col = torch.arange(Q, device=cost.device)
+    cost = torch.where((col[None, :] >= n_fp[:, None])[:, None, :], 1e6, cost)
+    assign = solve_lsa_batch(cost.detach(), n_fp.to(torch.int32))   # [B, Q]
+    paired_noun = _gather_queries(fpn_bi, assign)
+    fp_row_valid = (col[None, :] < n_fp[:, None]) & sample_valid[:, None]
+    fp_kl = _kl2(paired_noun, fps_bi) * fp_row_valid
+    return (tp_kl.sum(-1) + fp_kl.sum(-1)) / Q
+
+
+def loss_softkd(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
+                noun_boxes: torch.Tensor, sth_boxes: torch.Tensor,
+                t2q_noun: torch.Tensor, t2q_sth: torch.Tensor,
+                box_valid: torch.Tensor, sample_valid: torch.Tensor
+                ) -> torch.Tensor:
+    """Softkd of one decoder level: the mean over valid images."""
+    per_image = _softkd_per_image(noun_logits, sth_logits, noun_boxes,
+                                  sth_boxes, t2q_noun, t2q_sth, box_valid,
+                                  sample_valid)
+    return (per_image * sample_valid).sum() / sample_valid.sum().clamp(min=1)
+
+
+def loss_softkd_levels(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
+                       noun_boxes: torch.Tensor, sth_boxes: torch.Tensor,
+                       t2q_noun: torch.Tensor, t2q_sth: torch.Tensor,
+                       box_valid: torch.Tensor,
+                       sample_valid: torch.Tensor) -> torch.Tensor:
+    """Softkd of all decoder levels in ONE re-pairing solve: inputs stacked
+    [L, B, ...] (aux levels, then main), box_valid / sample_valid shared
+    [B, ...] -> [L] per-level losses."""
+    L, B = noun_logits.shape[:2]
+
+    def flat(x):
+        return x.reshape((L * B,) + x.shape[2:])
+
+    def tile(x):
+        return flat(x[None].expand((L,) + x.shape))
+
+    per_image = _softkd_per_image(
+        flat(noun_logits), flat(sth_logits), flat(noun_boxes),
+        flat(sth_boxes), flat(t2q_noun), flat(t2q_sth), tile(box_valid),
+        tile(sample_valid)).reshape(L, B)
+    return (per_image * sample_valid[None, :]).sum(-1) \
+        / sample_valid.sum().clamp(min=1)
+
+
+def loss_nsthl2(noun_text_memory: torch.Tensor,
+                sth_text_memory: torch.Tensor, noun_spans: torch.Tensor,
+                sth_spans: torch.Tensor, box_valid: torch.Tensor,
+                sample_valid: torch.Tensor) -> torch.Tensor:
+    """L2 text-feature distillation (reference mdetr.py:668-781): the MSE
+    between the student's pooled "something" feature and the teacher's
+    pooled noun feature (detached), averaged over the images with boxes."""
+    bv = box_valid & sample_valid[:, None]
+    pooled_noun, _ = pool_span_features(noun_text_memory.float(), noun_spans,
+                                        bv)
+    pooled_sth, _ = pool_span_features(sth_text_memory.float(), sth_spans,
+                                       bv)
+    ok = (bv.sum(-1) > 0) & sample_valid
+    mse = ((pooled_sth - pooled_noun.detach()) ** 2).mean(-1)
+    return (mse * ok).sum() / ok.sum().clamp(min=1)
 
 
 def build_weight_dict(cfg: LossConfig, masks: bool,
@@ -217,7 +349,16 @@ def build_weight_dict(cfg: LossConfig, masks: bool,
 def total_loss(losses: Mapping[str, torch.Tensor],
                weight_dict: Mapping[str, float]) -> torch.Tensor:
     """Weighted sum over the keys present in the weight dict (reference
-    engine.py:72-74); "_" keys are not losses."""
-    terms = [weight_dict[k] * v for k, v in losses.items()
-             if not k.startswith("_") and k in weight_dict]
+    engine.py:72-74); "_" and "*_tgt2query" keys are not losses. A
+    distillation stream's key is weighed by its unprefixed name
+    ("noun_loss_ce" by "loss_ce", mdetr.py:1084-1092)."""
+    terms = []
+    for k, v in losses.items():
+        if k.startswith("_") or k.endswith("_tgt2query"):
+            continue
+        for p in ("noun_", "sth_"):
+            if k.startswith(p):
+                k = k[len(p):]
+        if k in weight_dict:
+            terms.append(weight_dict[k] * v)
     return torch.stack(terms).sum()

@@ -6,7 +6,8 @@ copy each to the model's device from pinned memory, run the train step, and
 read the scalars back (a host sync) only every ``print_freq`` steps and at
 the last one, stopping the process on a non-finite loss as the reference
 does (engine.py:82-85); those steps also go to the JSONL and TensorBoard
-sinks. ``evaluate``: per-task loop -> ``TaskEvaluator`` -> stats vectors +
+sinks, a distillation step's per-task bank counts with them (engine.py:
+190-193). ``evaluate``: per-task loop -> ``TaskEvaluator`` -> stats vectors +
 mean AP@0.5 over the tasks (engine.py:253-342, main.py:581-590).
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ from toist_tpu_torch.eval.evaluator import (TaskEvaluator,
                                             gt_records_from_json, mean_ap50)
 from toist_tpu_torch.utils.logging import JsonlLogger, MetricLogger
 from toist_tpu_torch.train.state import TrainState
-from toist_tpu_torch.train.step import TRAIN_KEYS, batch_to_device
+from toist_tpu_torch.train.step import train_batch_to_device
 
 LOGGED = ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm",
           "loss_contrastive_align")
@@ -33,30 +34,41 @@ def train_one_epoch(train_step: Callable, state: TrainState,
                     jsonl: Optional[JsonlLogger] = None, tb=None,
                     print_freq: int = 10) -> Tuple[TrainState,
                                                    Dict[str, float]]:
+    """One epoch of ``train_step(state, batch)`` over ``batch_iter``'s
+    batches (a distillation iterator, ``paired=True``, yields {"noun":
+    Batch, "sth": Batch})."""
     logger = MetricLogger(print_freq=print_freq, header=f"Epoch [{epoch}]")
     device = state.masters[0][1].device
     n_batches = len(batch_iter)
     for i, batch in enumerate(logger.log_every(batch_iter.epoch(epoch),
                                                total=n_batches)):
-        state, scalars = train_step(
-            state, batch_to_device(batch, device, TRAIN_KEYS))
+        state, scalars = train_step(state,
+                                    train_batch_to_device(batch, device))
         if i % print_freq == 0 or i == n_batches - 1:
-            host = {k: float(v) for k, v in scalars.items()}
+            host = {k: float(v) for k, v in scalars.items() if v.dim() == 0}
             if not host["loss_is_finite"]:
                 print(f"Loss is not finite: {host}", flush=True)
                 sys.exit(1)
             logger.update(**{k: host[k] for k in LOGGED if k in host})
+            # Per-task bank counts ([T] vectors) are logged as lists.
+            vecs = {k: v.tolist() for k, v in scalars.items()
+                    if v.dim() == 1}
             if jsonl is not None:
                 jsonl.write({"kind": "train_step", "epoch": epoch,
-                             "step": int(state.step), **host})
+                             "step": int(state.step), **host, **vecs})
             if tb is not None:
                 # Reference tags: 'training_loss' + each weighted loss
-                # (engine.py:108-111).
+                # (engine.py:108-111); per task 'update_count_N' and
+                # 'full_label_N' (engine.py:190-193).
                 row = {"training_loss": host["loss"]} if "loss" in host \
                     else {}
                 row.update({k: v for k, v in host.items()
                             if k.startswith("loss_")
                             and k != "loss_is_finite"})
+                for name, tag in (("bank_update_count", "update_count"),
+                                  ("bank_full", "full_label")):
+                    for j, v in enumerate(vecs.get(name, [])):
+                        row[f"{tag}_{j + 1}"] = v
                 tb.add_scalars(row, step=int(state.step))
     return state, logger.summary()
 

@@ -91,7 +91,11 @@ def make_schedules(cfg: OptimConfig, steps_per_epoch: int,
 def make_optimizer(params: Dict[str, List[torch.Tensor]], cfg: OptimConfig
                    ) -> torch.optim.AdamW:
     """AdamW over the trainable groups {group name: tensors}; each param
-    group carries its name, and the train step sets its lr every step."""
+    group carries its name, and the train step sets its lr every step. In
+    distillation each group holds the student's tensors, then the
+    teacher's (``train/state.init_train_state``): one AdamW over both
+    models, in a fixed order, since ``checkpoint.restore`` loads the
+    moments by index."""
     if cfg.moment_dtype != "float32":
         raise NotImplementedError(
             f"optim.moment_dtype={cfg.moment_dtype!r}: torch.optim.AdamW "

@@ -6,8 +6,11 @@ generator, the set criterion with its on-device Hungarian matching, the
 weighted total, backward, gradient accumulation over microbatches,
 ``clip_grad_norm_`` over the trainable parameters, AdamW with the per-group
 schedules, EMA. The NaN guard is the ``loss_is_finite`` scalar; the epoch
-loop decides to stop. Scalars stay on the device: reading them is the
-caller's host sync.
+loop decides to stop. With ``loss.cluster`` the step snaps the "something"
+span to its cluster center between encode and decode and threads the bank
+through ``TrainState.cluster_bank``. Scalars stay on the device: reading
+them is the caller's host sync. The distillation step (``train/distill.py``)
+shares ``accumulate_gradients`` and ``apply_gradients``.
 """
 from __future__ import annotations
 
@@ -18,12 +21,15 @@ import torch
 
 from toist_tpu_torch.config import Config
 from toist_tpu_torch.models.postprocess import postprocess_boxes
+from toist_tpu_torch.train import cluster as cl
 from toist_tpu_torch.train import criterion as crit
 from toist_tpu_torch.train.optim import ema_update
-from toist_tpu_torch.train.state import TrainState
+from toist_tpu_torch.train.state import TrainState, model_masters
 
 INPUT_KEYS = ("images", "image_mask", "text_ids", "text_mask")
 TARGET_KEYS = ("boxes", "positive_map", "box_valid", "sample_valid")
+# What the cluster bank and the distillation losses read besides.
+CLUSTER_KEYS = ("noun_token_spans", "caption_noun_span", "task_id")
 EVAL_KEYS = INPUT_KEYS + ("orig_size",)
 TRAIN_KEYS = INPUT_KEYS + TARGET_KEYS
 
@@ -43,65 +49,103 @@ def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device,
     return out
 
 
-def _as_tensors(batch, device, keys):
-    if all(isinstance(batch[k], torch.Tensor) for k in keys):
-        return {k: batch[k] for k in keys}
-    return batch_to_device(batch, device, keys)
+def train_batch_to_device(batch, device: torch.device
+                          ) -> Dict[str, torch.Tensor]:
+    """A training batch on ``device``: the train and cluster keys it has,
+    or, for a distillation pair {"noun": Batch, "sth": Batch}, each
+    stream's."""
+    if "noun" in batch:
+        return {k: train_batch_to_device(b, device) for k, b in batch.items()}
+    if all(isinstance(batch[k], torch.Tensor) for k in TRAIN_KEYS):
+        return dict(batch)
+    return batch_to_device(batch, device, [k for k in TRAIN_KEYS
+                                           + CLUSTER_KEYS if k in batch])
 
 
 def dropout_generator(device: torch.device, seed: int, step: int,
-                      micro: int = 0) -> torch.Generator:
+                      micro: int = 0, stream: int = 0) -> torch.Generator:
     """The step's dropout randomness (``make_dropout_rng``: the run seed
-    folded with the step, and with the microbatch under accumulation)."""
+    folded with the step, and with the microbatch under accumulation);
+    ``stream`` tells apart the distillation step's four forward halves
+    (JAX's r1..r4)."""
     g = torch.Generator(device=device)
-    g.manual_seed(((seed * 1_000_003 + step) * 1_009 + micro) % 2 ** 63)
+    g.manual_seed((((seed * 1_000_003 + step) * 1_009 + micro)
+                   + stream * 0x9E3779B97F4A7C15) % 2 ** 63)
     return g
 
 
 def forward_losses(model: torch.nn.Module, batch: Mapping[str, torch.Tensor],
                    cfg: Config, weight_dict: Mapping[str, float],
-                   generator: Optional[torch.Generator] = None
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   generator: Optional[torch.Generator] = None,
+                   bank: Optional[cl.ClusterBank] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                              Optional[cl.ClusterBank]]:
     """Forward + criterion -> (weighted total, losses incl. "_tgt2query*"
-    matchings and "loss")."""
-    out, _ = model(batch["images"], batch["image_mask"], batch["text_ids"],
-                   batch["text_mask"], generator=generator)
+    matchings and "loss", the bank). With a cluster ``bank``
+    (``loss.cluster`` without distillation, step.py:127-177), the
+    "something" span is snapped to its cluster center between encode and
+    decode, with no cluster loss; the bank's centers move on."""
+    args = [batch[k] for k in INPUT_KEYS]
+    if bank is None:
+        out, _ = model(*args, generator=generator)
+    else:
+        cache = model.encode(*args, generator=generator)
+        bank, cache["img_memory_mod"], _ = cl.student_cluster(
+            bank, cache, batch, cfg.loss.kmeans_max_iters,
+            cfg.loss.kmeans_tol, train=False)
+        out = model.decode(cache, use_modified_memory=True,
+                           generator=generator)
     losses = crit.set_criterion(out, batch, cfg.loss)
     total = crit.total_loss(losses, weight_dict)
     losses["loss"] = total
-    return total, losses
+    return total, losses, bank
 
 
 def _scalars(losses: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach() for k, v in losses.items() if not k.startswith("_")}
 
 
+def _plain_losses(state: TrainState, batch: Mapping[str, torch.Tensor],
+                  cfg: Config, weight_dict: Mapping[str, float], micro: int
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    g = dropout_generator(state.masters[0][1].device, cfg.run.seed,
+                          state.step, micro)
+    total, losses, state.cluster_bank = forward_losses(
+        state.model.train(), batch, cfg, weight_dict, g, state.cluster_bank)
+    return total, losses
+
+
 def accumulate_gradients(state: TrainState, batch: Mapping[str, torch.Tensor],
-                         cfg: Config, weight_dict: Mapping[str, float]
+                         cfg: Config, weight_dict: Mapping[str, float],
+                         losses_fn: Callable = _plain_losses
                          ) -> Dict[str, torch.Tensor]:
     """Forward and backward over ``optim.grad_accum_steps`` = A microbatches
     of ``batch`` (``accumulate_gradients``, step.py:62-119), leaving the mean
     gradient on the f32 masters (zero for a trainable parameter the loss
     does not reach, as in optax). Each microbatch is normalised by the
-    batch's valid-box count / A, so the result equals one pass over the
-    whole batch; each draws its own dropout generator. Returns the
-    microbatch-mean scalars."""
+    batch's valid-box count / A (per stream for a distillation pair), so the
+    result equals one pass over the whole batch; each draws its own dropout
+    generators. The cluster bank threads through the microbatches in order.
+    ``losses_fn(state, microbatch, cfg, weight_dict, i) -> (total, losses)``
+    runs one microbatch's forward (``_plain_losses``, or distillation's).
+    Returns the microbatch-mean scalars."""
     accum = max(1, cfg.optim.grad_accum_steps)
-    model = state.model.train()
-    B = batch["images"].shape[0]
+    streams = batch if "box_valid" not in batch else {None: batch}
+    B = next(iter(streams.values()))["images"].shape[0]
     if B % accum:
         raise ValueError(f"batch {B} is not {accum} microbatches")
     n = B // accum
-    num_boxes = crit.compute_num_boxes(batch["box_valid"],
-                                       batch["sample_valid"])
-    device = state.masters[0][1].device
+    num_boxes = {s: crit.compute_num_boxes(b["box_valid"], b["sample_valid"])
+                 for s, b in streams.items()}
     sums: Dict[str, torch.Tensor] = {}
     for i in range(accum):
-        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        mb = {s: {k: v[i * n:(i + 1) * n] for k, v in b.items()}
+              for s, b in streams.items()}
         if accum > 1:
-            mb["num_boxes_override"] = num_boxes / accum
-        g = dropout_generator(device, cfg.run.seed, state.step, i)
-        total, losses = forward_losses(model, mb, cfg, weight_dict, g)
+            for s in mb:
+                mb[s]["num_boxes_override"] = num_boxes[s] / accum
+        total, losses = losses_fn(state, mb[None] if None in mb else mb, cfg,
+                                  weight_dict, i)
         total.backward()
         for p, m in state.masters:               # bf16 grads -> f32 masters
             if m is not p and p.grad is not None:
@@ -120,33 +164,43 @@ def accumulate_gradients(state: TrainState, batch: Mapping[str, torch.Tensor],
     return {k: v / accum for k, v in sums.items()}
 
 
+def apply_gradients(state: TrainState, cfg: Config,
+                    scalars: Dict[str, torch.Tensor]) -> TrainState:
+    """``clip_grad_norm_`` over every trainable master (both models' in
+    distillation), AdamW at the groups' scheduled lr, the masters copied
+    into the models' parameters, the EMA of each model, the step. Adds
+    "grad_norm" and "loss_is_finite" to ``scalars``."""
+    masters = [m for _, m in state.masters]
+    scalars["grad_norm"] = torch.nn.utils.clip_grad_norm_(
+        masters, cfg.optim.clip_max_norm)
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedules[group["name"]](state.step)
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        for p, m in state.masters:
+            if m is not p:
+                p.copy_(m)
+    for ema, teacher in ((state.ema, False), (state.teacher_ema, True)):
+        if ema is not None:
+            ema_update(list(ema.values()),
+                       [m for _, _, m in model_masters(state, teacher)],
+                       cfg.optim.ema_decay)
+    state.step += 1
+    scalars["loss_is_finite"] = torch.isfinite(scalars["loss"])
+    return state
+
+
 def make_train_step(cfg: Config, weight_dict: Mapping[str, float]
                     ) -> Callable:
     """(state, batch) -> (state, scalars): ``accumulate_gradients``, then
-    ``clip_grad_norm_`` over the trainable parameters, AdamW at the groups'
-    scheduled lr, the bf16 copy of the masters, EMA. ``batch`` is a batcher
-    ``Batch`` (numpy, copied here) or its tensors already on the model's
-    device."""
+    ``apply_gradients``. ``batch`` is a batcher ``Batch`` (numpy, copied
+    here) or its tensors already on the model's device."""
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        batch = _as_tensors(batch, state.masters[0][1].device, TRAIN_KEYS)
+        batch = train_batch_to_device(batch, state.masters[0][1].device)
         scalars = accumulate_gradients(state, batch, cfg, weight_dict)
-        masters = [m for _, m in state.masters]
-        scalars["grad_norm"] = torch.nn.utils.clip_grad_norm_(
-            masters, cfg.optim.clip_max_norm)
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.schedules[group["name"]](state.step)
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            for p, m in state.masters:
-                if m is not p:
-                    p.copy_(m)
-        if state.ema is not None:
-            ema_update(list(state.ema.values()), masters, cfg.optim.ema_decay)
-        state.step += 1
-        scalars["loss_is_finite"] = torch.isfinite(scalars["loss"])
-        return state, scalars
+        return apply_gradients(state, cfg, scalars), scalars
 
     return train_step
 

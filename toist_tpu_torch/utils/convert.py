@@ -15,9 +15,13 @@ reference checkpoint's layout, which ``TOIST.from_state_dict`` loads after
 ``load_reference_checkpoint`` reads a reference ``.pth`` (or the port's own
 checkpoint, which has the same format) into a state dict of that layout:
 the port keeps the reference's parameter names, so no conversion is needed.
+
+``cluster_bank_from_jax`` carries a JAX ``ClusterBank`` (its four arrays)
+into the port's.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any, Dict, Mapping
 
@@ -191,6 +195,18 @@ def load_reference_checkpoint(path: str, prefer_ema: bool = True
                 k = k[len(pre):]
         out[k] = v
     return out
+
+
+def cluster_bank_from_jax(bank: Any, device="cpu"):
+    """The port's ``train/cluster.ClusterBank`` on ``device`` from a JAX
+    ``toist_tpu.train.cluster.ClusterBank``, or any object with its four
+    fields as arrays numpy reads (feature_bank [T, M, D] f32,
+    cluster_centers [T, K, D] f32, update_count [T] int32, full [T] bool)."""
+    from toist_tpu_torch.train.cluster import ClusterBank
+
+    return ClusterBank(**{
+        f.name: torch.from_numpy(np.array(getattr(bank, f.name))).to(device)
+        for f in dataclasses.fields(ClusterBank)})
 
 
 def synth_reference_state_dict(stage_sizes=(1, 1, 1, 1), enc=1, dec=1,
