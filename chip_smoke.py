@@ -139,6 +139,33 @@ Phases, each of which raises on failure (non-zero exit):
      (toist_tpu_torch.scripts.fixture_distill_ablation) runs on the card:
      the teacher's, the plain and the distilled student's AP@0.5 and the
      margin, as a record (the gate is a CPU test).
+ 13. segmentation through toist_tpu_torch.main at full width in bf16 on
+     the fixture (the mask head at 264 input channels). Run 1 is
+     train_seg (scripts/train_seg.sh): phase 11's detection checkpoint by
+     --load (its contrastive projections dropped, the mask head's fresh
+     init kept), model.frozen_detector, batch 2, loss.aux_loss=false, one
+     epoch, checkpoint, bbox + segm eval (batch 4, 800x1344),
+     BEST_checkpoint; run 2 is eval_seg (--eval --resume); run 3 is
+     train_seg_dis then eval_seg_dis (phase 12's checkpoint by --load,
+     loss.cluster=true, the bank's calls under set_sync_debug_mode
+     ("error")). Every frozen-detector step launches 12 tensor-core
+     forwards (with dropout), no dK/dV or dQ and 1 LSA, every eval batch 12
+     forwards and 1 LSA; loss_mask and loss_dice are finite; only
+     bbox_attention.* and mask_head.* train, every other parameter stays
+     bit for bit, the EMA moves; each eval has segm stats for both tasks
+     and log.jsonl its map@0.5_masks; the resumed state equals run 1's bit
+     for bit and run 2's first mask logits lie within 1.5e-2 of run 1's.
+     Then one eval batch of 4 at 800x1344 in f32 through the kernels and
+     through the plain attention (mask logits, class logits and boxes
+     within 2e-3; the LSA kernel's matching equal to the plain solver's on
+     the same costs; the card's postprocess_masks_device equal to the same
+     function on the CPU on the same logits except at knife-edge pixels),
+     and Predictor with a mask head on 4 images (an RLE of the original
+     size for every kept box). It prints the seg step ms, img/s and peak
+     memory, torch.profiler over 3 steps (kernel ms by kind, the mask head
+     forward's span), the seg eval img/s split into the eval step, the
+     device postprocess (CUDA events), copy and host RLE ms per batch and
+     the overflowing samples, and each checkpoint's size.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -964,10 +991,13 @@ def _canvas(batch):
                  .shape[1:3])
 
 
-def _profile_steps(smi, step, state, it, canvas, n=3, label="bf16"):
+def _profile_steps(smi, step, state, it, canvas, n=3, label="bf16",
+                   ranges=()):
     """torch.profiler over n training steps on one canvas after a warm-up
     step there: device kernel ms per step by kind and by attention kernel,
-    against the host-clock ms of n unprofiled steps (busy share)."""
+    against the host-clock ms of n unprofiled steps (busy share); for each
+    record_function range named in ``ranges``, its device span ms per step
+    (the profiler's GPU annotation of the range)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -990,7 +1020,10 @@ def _profile_steps(smi, step, state, it, canvas, n=3, label="bf16"):
             state, _ = step(state, b)
         torch.cuda.synchronize()
     kinds, by_name, launches, top = {}, {}, 0, []
+    spans = {r: "not measured" for r in ranges}
     for e in prof.key_averages():
+        if e.key in spans and e.device_type == DeviceType.CUDA:
+            spans[e.key] = e.device_time_total / 1e3 / n
         # Device events only; a user annotation (the optimizer's
         # "Optimizer.step#..." range) spans kernels counted on their own.
         if (e.device_type != DeviceType.CUDA
@@ -1018,6 +1051,8 @@ def _profile_steps(smi, step, state, it, canvas, n=3, label="bf16"):
            "top_kernels": [{"ms_per_step": ms, "name": name, "kind": kind,
                             "calls_per_step": calls}
                            for ms, name, kind, calls in sorted(top)[::-1][:12]]}
+    if ranges:
+        res["range_device_ms_per_step"] = spans
     if kernel_ms <= 0:      # the profiler saw no device time: not measured
         res = {"canvas": list(canvas), "wall_ms": wall,
                "kernel_ms_per_step": "not measured"}
@@ -1284,15 +1319,20 @@ def lsa_time(smi, case, lsa_inputs):
 class _Hooks:
     """Wraps what toist_tpu_torch.main calls (its train and eval steps,
     engine.evaluate, checkpoint.restore) to count each call's kernel
-    launches and keep what phases 11 and 12 check; ``undo`` puts them back.
+    launches and keep what phases 11-13 check; ``undo`` puts them back.
     With ``distill`` (phase 12) it also wraps the distillation and cluster
     eval step makers, times each train step (host clock with a device
     sync), snapshots the state before the first step, keeps the bank's
     growth per step, runs the cluster bank's entry points under
     torch.cuda.set_sync_debug_mode("error") (a host sync there raises) and
-    keeps their last inputs and the first softkd re-pairing problem."""
+    keeps their last inputs and the first softkd re-pairing problem. With
+    ``seg`` (phase 13) it times each plain train step the same way, keeps
+    its scalars, snapshots the state before the first step, wraps the
+    cluster eval step maker and the bank's entry points as for ``distill``,
+    and keeps the timings of each eval batch's mask postprocess
+    (``finish_masks_device``) and the first eval batch's mask logits."""
 
-    def __init__(self, distill=False):
+    def __init__(self, distill=False, seg=False):
         import torch
 
         from toist_tpu_torch import main as pmain
@@ -1311,20 +1351,23 @@ class _Hooks:
             self.undo_list.append((obj, name, getattr(obj, name)))
             setattr(obj, name, wrap(getattr(obj, name)))
 
+        timed_steps = distill or seg
+
         def counted_train(make):
-            def make_step(cfg, weight_dict):
-                step = make(cfg, weight_dict)
+            def make_step(*args, **kwargs):
+                step = make(*args, **kwargs)
 
                 def train_step(state, batch):
-                    if distill and self.first is None:
+                    if timed_steps and self.first is None:
                         self.first = _snapshot(state)
                     before = read_counts()
                     if distill:
                         bank0 = state.cluster_bank.update_count.sum().item()
+                    if timed_steps:
                         torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     state, scalars = step(state, batch)
-                    if distill:
+                    if timed_steps:
                         torch.cuda.synchronize()
                         ms = (time.perf_counter() - t0) * 1e3
                     after = read_counts()
@@ -1334,13 +1377,22 @@ class _Hooks:
                     if distill:
                         self.steps.append(_distill_step_record(
                             state, batch, scalars, ms, bank0))
+                    elif seg:
+                        self.steps.append({
+                            "canvas": list(batch["images"].shape[1:3]),
+                            "images": int(batch["sample_valid"].sum()),
+                            "ms": ms, "peak_gib":
+                            torch.cuda.max_memory_allocated() / 2 ** 30,
+                            "scalars": {
+                                k: float(v) for k, v in scalars.items()
+                                if v.dim() == 0}})
                     return state, scalars
                 return train_step
             return make_step
 
         def counted_eval(make):
-            def make_step(model, cfg, weight_dict):
-                step = make(model, cfg, weight_dict)
+            def make_step(*args, **kwargs):
+                step = make(*args, **kwargs)
 
                 def eval_step(*args):
                     batch = args[-1]
@@ -1359,6 +1411,9 @@ class _Hooks:
                         self.first_dets.append({
                             k: res["post"][k].clone()
                             for k in ("scores", "boxes")})
+                        if "pred_masks" in res:
+                            self.first_dets[-1]["pred_masks"] = \
+                                res["pred_masks"].clone()
                     return res
                 return eval_step
             return make_step
@@ -1366,10 +1421,11 @@ class _Hooks:
         def timed_evaluate(evaluate):
             def run(*args, **kwargs):
                 self.evals.append({"calls": [], "launches": [],
-                                   "images": [], "parts": {}})
+                                   "images": [], "parts": {}, "masks": []})
                 start = time.perf_counter()
                 out = evaluate(*args, **kwargs)
                 self.evals[-1]["end"] = end = time.perf_counter()
+                self.evals[-1]["results"] = out
                 parts = self.evals[-1]["parts"]
                 parts["other"] = end - start - sum(parts.values())
                 return out
@@ -1412,6 +1468,16 @@ class _Hooks:
                 return run
             return wrap
 
+        def mask_timings(finish):
+            # Each eval batch's mask postprocess: device ms (CUDA events),
+            # copy and host RLE ms, overflowing samples.
+            def run(handle, timings=None):
+                t = {}
+                out = finish(handle, timings=t)
+                self.evals[-1]["masks"].append(t)
+                return out
+            return run
+
         def first_softkd(solve):
             def run(cost, n):
                 if self.softkd_problem is None:
@@ -1423,18 +1489,21 @@ class _Hooks:
         patch(pmain, "make_eval_step", counted_eval)
         patch(engine, "evaluate", timed_evaluate)
         patch(ckpt, "restore", kept_restore)
-        if distill:
-            patch(pmain, "make_distillation_train_step", counted_train)
+        if distill or seg:
             patch(pmain, "make_cluster_eval_step", counted_eval)
             for name in ("teacher_update_and_snap", "student_cluster"):
                 patch(cl, name, no_sync(name))
+        if distill:
+            patch(pmain, "make_distillation_train_step", counted_train)
             patch(crit, "solve_lsa_batch", first_softkd)
+        if seg:
+            patch(engine, "finish_masks_device", mask_timings)
         # Where evaluate's host time goes: the eval step (the forward's
         # launches, the criterion and its matching), the wait for each
         # batch's copies (the device's time beyond what the next batch
         # overlaps), TaskEvaluator.update and .summarize (COCO scoring);
         # "other" is the rest, mostly the wait for the loader's batches.
-        patch(engine, "_finish_to_host", timed("copy_wait"))
+        patch(engine, "finish_to_host", timed("copy_wait"))
         patch(engine.TaskEvaluator, "update", timed("update"))
         patch(engine.TaskEvaluator, "summarize", timed("summarize"))
 
@@ -1456,13 +1525,19 @@ def _detached(x):
     return x
 
 
+def _models(state):
+    """("student", False), and ("teacher", True) when there is one."""
+    return [("student", False)] + ([("teacher", True)]
+                                   if state.teacher is not None else [])
+
+
 def _snapshot(state):
-    """Copies of what phase 12 checks moved: both models' masters and EMAs,
-    and their frozen parameters."""
+    """Copies of what phases 12 and 13 check moved: each model's masters
+    and EMA, and its frozen parameters."""
     from toist_tpu_torch.train.state import model_masters
 
     snap = {}
-    for who, teacher in (("student", False), ("teacher", True)):
+    for who, teacher in _models(state):
         model = state.teacher if teacher else state.model
         ema = state.teacher_ema if teacher else state.ema
         snap[who] = {
@@ -1784,14 +1859,14 @@ def phase_distill(smi, root, teacher_ckpt):
 
 
 def _moved(first, state):
-    """Whether both models' trainable parameters all changed, their frozen
-    ones did not, and both EMAs moved, against the snapshot ``first``."""
+    """Whether each model's trainable parameters all changed, its frozen
+    ones did not, and its EMA moved, against the snapshot ``first``."""
     import torch
 
     from toist_tpu_torch.train.state import model_masters
 
     out = {"ok": True}
-    for who, teacher in (("student", False), ("teacher", True)):
+    for who, teacher in _models(state):
         model = state.teacher if teacher else state.model
         ema = state.teacher_ema if teacher else state.ema
         masters = {n: m for n, _, m in model_masters(state, teacher)}
@@ -2102,6 +2177,454 @@ def phase_distill_kernel_vs_plain(student_sd, teacher_sd, bank0, batch):
     return res
 
 
+SEG_TRAIN_B = 2      # scripts/train_seg.sh
+SEG_EVAL_B = 4       # scripts/eval_seg.sh
+SEG_SETS = ["model.mask_model=smallconv", "model.frozen_detector=true",
+            "loss.aux_loss=false", "model.contrastive_align_loss=false"]
+# Per frozen-detector training step: the forward only (with dropout), no
+# attention backward, one matcher solve.
+SEG_TRAIN_LAUNCHES = {"fwd": LAUNCHES_PER_FORWARD, "dkv": 0, "dq": 0,
+                      "fwd_tc": LAUNCHES_PER_FORWARD, "dkv_tc": 0, "dq_tc": 0,
+                      "dropout": LAUNCHES_PER_FORWARD, "lsa": 1}
+SEG_EVAL_LAUNCHES = {"fwd": LAUNCHES_PER_FORWARD, "dkv": 0, "dq": 0,
+                     "fwd_tc": LAUNCHES_PER_FORWARD, "dkv_tc": 0, "dq_tc": 0,
+                     "dropout": 0, "lsa": 1}
+MASK_HEAD = ("bbox_attention.", "mask_head.")
+
+
+def _seg_eval_runs(hooks, batch_size):
+    """Each evaluate of a seg run: img/s (host clock from the second batch,
+    the first left out), host seconds by part, per batch the mask
+    postprocess's device ms (CUDA events), copy and host RLE ms, the
+    overflowing samples (packed path), and the bbox and mask AP@0.5 of each
+    task (None where a task has no segm stats)."""
+    runs = []
+    for run in hooks.evals:
+        masks = run["masks"]
+        ap = {str(t): {k: float(st[k][1]) if k in st else None
+                       for k in ("bbox", "segm")}
+              for t, st in run["results"].items()}
+
+        def mean(key):
+            vals = [t[key] for t in masks if key in t]
+            return sum(vals) / len(vals) if vals else "not measured"
+        runs.append({
+            "batches": len(run["calls"]), "batch_size": batch_size,
+            "images": sum(run["images"]),
+            "img_s": sum(run["images"][1:]) / (run["end"] - run["calls"][1]),
+            "host_s_by_part": run["parts"],
+            "eval_step_ms_per_batch": run["parts"].get("eval_step", 0.0)
+            * 1e3 / max(1, len(run["calls"])),
+            "mask_device_ms_per_batch": mean("device_ms"),
+            "mask_copy_ms_per_batch": mean("copy_ms"),
+            "mask_host_rle_ms_per_batch": mean("host_rle_ms"),
+            "mask_pulled_mb_per_batch": mean("packed_mb"),
+            "overflow_samples": sum(t.get("n_overflow_samples", 0)
+                                    for t in masks),
+            "ap50": ap,
+            "segm_ok": len(ap) == 2 and all(
+                v["segm"] is not None and math.isfinite(v["segm"])
+                for v in ap.values())})
+    return runs
+
+
+def _seg_eval_records(out):
+    """log.jsonl of a seg run: (kinds, eval records, whether each eval has
+    segm stats for every task with a finite mask AP@0.5 and the mean
+    map@0.5_masks)."""
+    with open(os.path.join(out, "log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    evals = [r for r in records if r["kind"] == "eval"]
+    ok = bool(evals) and all(
+        len(r["per_task"]) == 2 and math.isfinite(r.get(
+            "map@0.5_masks", math.nan))
+        and all("segm" in st and math.isfinite(st["segm"][1])
+                for st in r["per_task"].values())
+        for r in evals)
+    return {r["kind"] for r in records}, evals, ok
+
+
+def phase_seg(smi, root, det_ckpt, dis_ckpt):
+    """Phase 13: segmentation through toist_tpu_torch.main at full width in
+    bf16 on the fixture. Run 1 is train_seg (scripts/train_seg.sh): phase
+    11's detection checkpoint by --load, the mask head only (frozen
+    detector), batch 2, one epoch, checkpoint, bbox + segm eval (batch 4),
+    BEST_checkpoint; run 2 is eval_seg (--eval --resume); run 3 is
+    train_seg_dis then eval_seg_dis (phase 12's checkpoint by --load,
+    loss.cluster=true)."""
+    import numpy as np
+    import torch
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.train import checkpoint as ckpt
+    from toist_tpu_torch.train.state import model_masters
+
+    d = _fixture_config(root).data
+    out = os.path.join(root, "seg_out")
+    sets = [f"data.coco_path={d.coco_path}",
+            f"data.refexp_ann_path={d.refexp_ann_path}", "data.tasks=[1,2]",
+            f"data.num_workers={d.num_workers}", "optim.epochs=1",
+            f"optim.train_batch_size={SEG_TRAIN_B}",
+            f"optim.valid_batch_size={SEG_EVAL_B}", "optim.eval_skip=1",
+            *SEG_SETS]
+    argv1 = ["--load", det_ckpt, "--output-dir", out, "--set", *sets]
+    argv2 = ["--eval", "--resume", os.path.join(out, "checkpoint"),
+             "--set", *sets]
+    out3 = os.path.join(root, "seg_dis_out")
+    argv3 = ["--load", dis_ckpt, "--output-dir", out3, "--set", *sets,
+             "loss.cluster=true"]
+    hooks = _Hooks(seg=True)
+    n_saves = len(ckpt.SAVES)
+    # What earlier phases still hold on the card counts in every peak below.
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        best = pmain.main(pmain.parse_args(argv1))
+        t1 = time.perf_counter()
+        peak_eval = torch.cuda.max_memory_allocated() / 2 ** 30
+        run1_state = hooks.state
+        m2 = pmain.main(pmain.parse_args(argv2))
+        t2 = time.perf_counter()
+        launches = read_counts()
+    finally:
+        hooks.undo()
+    log(f"[seg] run 1 (train_seg 1 epoch, checkpoint, eval, best): "
+        f"{t1 - t0:.2f} s; run 2 (eval_seg: --eval --resume): "
+        f"{t2 - t1:.2f} s | {smi}")
+    steps = hooks.steps
+    kinds, evals, segm_ok = _seg_eval_records(out)
+    bad_train = [c for c in hooks.train if c != SEG_TRAIN_LAUNCHES]
+    bad_eval = [c for run in hooks.evals for c in run["launches"]
+                if c != SEG_EVAL_LAUNCHES]
+    bad_losses = [st for st in steps
+                  if not all(math.isfinite(v) for v in st["scalars"].values())
+                  or not {"loss_mask", "loss_dice"} <= set(st["scalars"])]
+    trainable = {n for n, _, _ in model_masters(run1_state)}
+    moved = _moved(hooks.first, run1_state)
+    diff = _states_equal(run1_state, hooks.restored[0]) \
+        if hooks.restored else ["no restore"]
+    mask_err = _rel_err(hooks.first_dets[1]["pred_masks"],
+                        hooks.first_dets[0]["pred_masks"])
+    saves = [dict(sv, path=os.path.basename(sv["path"]))
+             for sv in ckpt.SAVES[n_saves:]]
+    runs = _seg_eval_runs(hooks, SEG_EVAL_B)
+    n_img = sum(st["images"] for st in steps)
+    step_s = sum(st["ms"] for st in steps) / 1e3
+    res = {"train_steps": len(steps), "img_s": n_img / step_s,
+           "step_ms": sorted(st["ms"] for st in steps),
+           "peak_gib_train": max(st["peak_gib"] for st in steps),
+           "peak_gib_with_eval": peak_eval, "resident_gib_before": resident,
+           "eval_runs": runs,
+           "mask_ap50": {"run1": [r["map@0.5_masks"] for r in evals],
+                         "bbox_run1": best, "bbox_run2": m2},
+           "checkpoints": saves, "resume_differs": diff,
+           "first_eval_batch_masks_rel_err": mask_err,
+           "launches": launches, "log_kinds": sorted(kinds),
+           "parameters": moved,
+           "trainable": sorted({n.split(".")[0] for n in trainable})}
+    for st in steps:
+        log(f"[seg] step {json.dumps(st)}")
+    log(f"[seg] {json.dumps(res)} | {smi}")
+    log(f"[seg] {len(steps)} steps, {n_img} images in {step_s:.3f} s: "
+        f"{n_img / step_s:.3f} img/s, step ms "
+        f"{sorted(round(st['ms'], 1) for st in steps)}, "
+        f"peak memory {res['peak_gib_train']:.2f} GiB (training), "
+        f"{peak_eval:.2f} GiB (with the eval), of which {resident:.2f} GiB "
+        f"held by earlier phases | {smi}")
+    for sv in saves:
+        log(f"[seg] {sv['path']}: {sv['bytes'] / 2**30:.3f} GiB, host copy "
+            f"{sv['copy_s']:.2f} s, write {sv['write_s']:.2f} s | {smi}")
+    for i, r in enumerate(runs):
+        log(f"[seg] run {i + 1} eval: {r['img_s']:.2f} img/s over "
+            f"{r['batches']} batches of {SEG_EVAL_B} (first left out); per "
+            f"batch eval step {r['eval_step_ms_per_batch']:.1f} ms (host), "
+            f"mask postprocess {r['mask_device_ms_per_batch']} ms (device), "
+            f"copy {r['mask_copy_ms_per_batch']} ms, host RLE "
+            f"{r['mask_host_rle_ms_per_batch']} ms; {r['overflow_samples']} "
+            f"overflowing samples | {smi}")
+    if (len(steps) < 5 or bad_train or bad_losses or len(hooks.evals) != 2
+            or any(r["batches"] != 16 or not r["segm_ok"] for r in runs)
+            or bad_eval
+            or not {"train_step", "epoch", "eval"} <= kinds or not segm_ok
+            or not (np.isfinite(best) and np.isfinite(m2))
+            or {n.split(".")[0] + "." for n in trainable} != set(MASK_HEAD)
+            or not moved["ok"] or diff or mask_err > REL_TOL["bfloat16"]
+            or [sv["path"] for sv in saves] != ["checkpoint",
+                                                "BEST_checkpoint"]):
+        raise AssertionError(
+            f"phase 13 (segmentation): {res}; bad train steps "
+            f"{bad_train[:3]}, bad eval steps {bad_eval[:3]}, bad losses "
+            f"{bad_losses[:2]}")
+    res["eval_tc_launches"] = sum(c["fwd_tc"] for run in hooks.evals
+                                  for c in run["launches"])
+    train1 = hooks.train
+    eval1 = [c for run in hooks.evals for c in run["launches"]]
+    hooks.restored.clear()
+    torch.cuda.empty_cache()
+
+    # Run 3: train_seg_dis, then eval_seg_dis (the cluster eval with masks).
+    hooks = _Hooks(seg=True)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        best3 = pmain.main(pmain.parse_args(argv3))
+        t3 = time.perf_counter()
+        launches3 = read_counts()
+    finally:
+        hooks.undo()
+    kinds3, evals3, segm_ok3 = _seg_eval_records(out3)
+    bad_train3 = [c for c in hooks.train if c != SEG_TRAIN_LAUNCHES]
+    bad_eval3 = [c for run in hooks.evals for c in run["launches"]
+                 if c != SEG_EVAL_LAUNCHES]
+    bad_losses3 = [st for st in hooks.steps if not all(
+        math.isfinite(v) for v in st["scalars"].values())]
+    moved3 = _moved(hooks.first, hooks.state)
+    runs3 = _seg_eval_runs(hooks, SEG_EVAL_B)
+    res["dis"] = {"seconds": t3 - t0, "train_steps": len(hooks.steps),
+                  "eval_runs": runs3, "launches": launches3,
+                  "mask_ap50": [r["map@0.5_masks"] for r in evals3],
+                  "bbox_ap50": best3, "parameters": moved3,
+                  "cluster_calls_without_sync": hooks.cluster_calls}
+    log(f"[seg] run 3 (train_seg_dis 1 epoch, eval_seg_dis): "
+        f"{json.dumps(res['dis'])} | {smi}")
+    if (len(hooks.steps) < 5 or bad_train3 or bad_losses3 or bad_eval3
+            or len(runs3) != 1 or runs3[0]["batches"] != 16
+            or not runs3[0]["segm_ok"] or not segm_ok3 or not moved3["ok"]
+            or not math.isfinite(best3)
+            or hooks.cluster_calls != len(hooks.steps) + 16):
+        raise AssertionError(
+            f"phase 13 (train_seg_dis): {res['dis']}; bad train steps "
+            f"{bad_train3[:3]}, bad eval steps {bad_eval3[:3]}")
+    res["dis"]["eval_tc_launches"] = sum(c["fwd_tc"] for run in hooks.evals
+                                         for c in run["launches"])
+    # Each kernel's launches over the phase's training steps and its eval
+    # batches (runs 1-3).
+    per_step = hooks.train + train1
+    per_batch = [c for run in hooks.evals for c in run["launches"]] + eval1
+    res["train_launches"] = {k: sum(c[k] for c in per_step)
+                             for k in SEG_TRAIN_LAUNCHES}
+    res["eval_launches"] = {k: sum(c[k] for c in per_batch)
+                            for k in SEG_EVAL_LAUNCHES}
+    del hooks
+    torch.cuda.empty_cache()
+
+    cfg = pmain.parse_args(argv1)
+    res["profile"] = _seg_profile(smi, cfg, run1_state, steps)
+    del run1_state
+    torch.cuda.empty_cache()
+    weights = ckpt.load_params(os.path.join(out, "checkpoint"))
+    res["f32_kernel_vs_plain"] = phase_seg_kernel_vs_plain(cfg, weights)
+    res["predictor"] = _seg_predictor(smi, cfg, weights)
+    return res
+
+
+def _seg_profile(smi, cfg, state, steps):
+    """torch.profiler over 3 seg training steps on run 1's largest canvas,
+    with a record_function range around compute_masks (the mask head's
+    forward)."""
+    import torch
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.data.batcher import BatchIterator
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.train.criterion import build_weight_dict
+    from toist_tpu_torch.train.step import make_train_step
+
+    tokenizer = build_tokenizer(cfg)
+    train_spec, _ = pmain.build_specs(cfg)
+    datasets = [build_task_dataset(cfg.data, t, "train", tokenizer,
+                                   masks=True) for t in cfg.data.tasks]
+    it = BatchIterator(datasets, train_spec, batch_size=SEG_TRAIN_B,
+                       seed=cfg.run.seed, num_workers=cfg.data.num_workers)
+    step = make_train_step(cfg, build_weight_dict(
+        cfg.loss, True, cfg.model.dec_layers))
+    top = max({tuple(st["canvas"]) for st in steps},
+              key=lambda hw: hw[0] * hw[1])
+    orig = TOIST.compute_masks
+
+    def ranged(self, *args, **kwargs):
+        with torch.profiler.record_function("compute_masks"):
+            return orig(self, *args, **kwargs)
+
+    TOIST.compute_masks = ranged
+    try:
+        res = _profile_steps(smi, step, state, it, top, label="seg",
+                             ranges=("compute_masks",))
+    finally:
+        TOIST.compute_masks = orig
+    span = res.get("range_device_ms_per_step", {}).get("compute_masks")
+    if isinstance(span, float) and isinstance(res["kernel_ms_per_step"],
+                                              float):
+        res["mask_head_forward_share"] = span / res["kernel_ms_per_step"]
+    log(f"[seg] profile: mask head forward span {span} ms per step, share "
+        f"{res.get('mask_head_forward_share', 'not measured')} of the "
+        f"kernel ms | {smi}")
+    return res
+
+
+def _non_knife_pixels(logits, size, orig, got, want, tol=1e-5):
+    """The pixels at which two RLE lists of one sample differ although
+    their bilinear logit (float64, the device path's two-tap vectors) lies
+    ``tol`` or more from the threshold 0."""
+    import numpy as np
+
+    from toist_tpu_torch.models.postprocess import _interp_vectors
+    from toist_tpu_torch.ops import rle
+
+    ch, cw = max(1, int(size[0]) // 4), max(1, int(size[1]) // 4)
+    oh, ow = int(orig[0]), int(orig[1])
+    iy0, iy1, ly0, ly1 = _interp_vectors(oh, ch)
+    ix0, ix1, lx0, lx1 = _interp_vectors(ow, cw)
+    bad = 0
+    for q, (a, b) in enumerate(zip(got, want)):
+        if a["counts"] == b["counts"]:
+            continue
+        m = logits[q].astype(np.float64)
+        rows = (m[iy0] * ly0.astype(np.float64)[:, None]
+                + m[iy1] * ly1.astype(np.float64)[:, None])
+        v = (rows[:, ix0] * lx0.astype(np.float64)
+             + rows[:, ix1] * lx1.astype(np.float64))
+        diff = rle.decode(a) != rle.decode(b)
+        bad += int((diff & (np.abs(v) >= tol)).sum())
+    return bad
+
+
+def phase_seg_kernel_vs_plain(cfg, weights):
+    """One eval batch of 4 at 800x1344 in f32 (TF32 off) on run 1's
+    weights, through the kernels and through the plain attention: the mask
+    logits within SLICE_TOL of their max abs, logits and boxes within
+    SLICE_TOL; the matcher's LSA kernel against the plain solver on the
+    same costs (equal matchings); and the card's postprocess_masks_device
+    against the same function on the CPU on the same logits (equal RLEs
+    but for knife-edge pixels)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.data.batcher import BatchIterator
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.models.layers import set_fused_attention
+    from toist_tpu_torch.models.postprocess import postprocess_masks_device
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.ops.lsa import solve_lsa_batch
+    from toist_tpu_torch.train import criterion as crit
+    from toist_tpu_torch.train.step import (EVAL_KEYS, INPUT_KEYS,
+                                            TARGET_KEYS, batch_to_device)
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    _, eval_spec = pmain.build_specs(cfg)
+    ds = build_task_dataset(cfg.data, cfg.data.tasks[0], "val",
+                            build_tokenizer(cfg), masks=True)
+    batch = next(BatchIterator([ds], eval_spec, batch_size=SEG_EVAL_B,
+                               shuffle=False).epoch(0))
+    model = TOIST.from_state_dict(weights, cfg.model, device="cuda")
+    x = batch_to_device(batch, "cuda", EVAL_KEYS + TARGET_KEYS)
+    outs = {}
+    with torch.inference_mode():
+        for name, fused in (("kernels", True), ("plain", False)):
+            set_fused_attention(model, fused)
+            before = read_counts()
+            out, cache = model(*(x[k] for k in INPUT_KEYS))
+            out["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
+            after = read_counts()
+            outs[name] = (out, {k: after[k] - before[k] for k in after})
+        out = outs["kernels"][0]
+        lsa0 = solve_lsa_batch.launches
+        t2q_card = crit.set_criterion(out, x, cfg.loss)["_tgt2query"]
+        lsa_launched = solve_lsa_batch.launches - lsa0
+        cpu = lambda d: {k: v.cpu() for k, v in d.items()  # noqa: E731
+                         if isinstance(v, torch.Tensor)}
+        t2q_plain = crit.set_criterion(cpu(out), cpu(x),
+                                       cfg.loss)["_tgt2query"]
+    errs = {k: (outs["kernels"][0][k] - outs["plain"][0][k]).abs().max()
+            .item() for k in ("pred_logits", "pred_boxes")}
+    errs["pred_masks_rel"] = _rel_err(outs["kernels"][0]["pred_masks"],
+                                      outs["plain"][0]["pred_masks"])
+    logits = out["pred_masks"]
+    t0 = time.perf_counter()
+    timings = {}
+    card = postprocess_masks_device(logits, batch["size"],
+                                    batch["orig_size"],
+                                    batch["sample_valid"], timings=timings)
+    t1 = time.perf_counter()
+    host = postprocess_masks_device(logits.cpu(), batch["size"],
+                                    batch["orig_size"],
+                                    batch["sample_valid"])
+    t2 = time.perf_counter()
+    l_np = logits.cpu().numpy()
+    knife = {"masks": 0, "differing_masks": 0, "non_knife_pixels": 0}
+    for b in range(len(card)):
+        if card[b] is None or host[b] is None:
+            knife["non_knife_pixels"] += int((card[b] is None)
+                                             != (host[b] is None))
+            continue
+        knife["masks"] += len(card[b])
+        knife["differing_masks"] += sum(a["counts"] != c["counts"]
+                                        for a, c in zip(card[b], host[b]))
+        knife["non_knife_pixels"] += _non_knife_pixels(
+            l_np[b], batch["size"][b], batch["orig_size"][b], card[b],
+            host[b])
+    res = {"max_abs_err": errs, "tolerance": SLICE_TOL,
+           "launches": {k: v[1] for k, v in outs.items()},
+           "lsa_launches": lsa_launched,
+           "matching_equal": bool(torch.equal(t2q_card.cpu(), t2q_plain)),
+           "rle_vs_cpu": knife, "card_postprocess_s": t1 - t0,
+           "cpu_postprocess_s": t2 - t1, "card_timings": timings,
+           "canvas": list(batch["images"].shape[1:3])}
+    log(f"[seg-f32] kernels vs plain on one eval batch: {json.dumps(res)}")
+    set_fused_attention(model, True)
+    if (max(errs["pred_logits"], errs["pred_boxes"]) > SLICE_TOL
+            or errs["pred_masks_rel"] > SLICE_TOL
+            or outs["kernels"][1]["fwd"] != LAUNCHES_PER_FORWARD
+            or outs["plain"][1]["fwd"] != 0 or lsa_launched != 1
+            or not res["matching_equal"] or knife["non_knife_pixels"]
+            or knife["masks"] != 100 * int(batch["sample_valid"].sum())):
+        raise AssertionError(f"segmentation kernels vs plain: {res}")
+    return res
+
+
+def _seg_predictor(smi, cfg, weights):
+    """Predictor with a mask head (bf16) answers one batch of 4 PIL images
+    at 800x1344: every kept box carries an RLE of its image's original
+    size, through 12 tensor-core forwards."""
+    import numpy as np
+    from PIL import Image
+
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.predict import Predictor
+
+    predictor = Predictor.from_state_dict(weights, cfg,
+                                          tokenizer=build_tokenizer(cfg))
+    rng = np.random.default_rng(SEED)
+    sizes = [(480, 640), (600, 800), (427, 640), (480, 600)]
+    imgs = [Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype="uint8"))
+            for h, w in sizes]
+    predictor(imgs[:1], task_ids=[1])                  # warm-up
+    before = read_counts()
+    t0 = time.perf_counter()
+    dets = predictor(imgs, task_ids=[1, 2, 1, 2])
+    dt = time.perf_counter() - t0
+    after = read_counts()
+    ok = len(dets) == 4 and all(
+        len(r["masks"]) == len(r["boxes"]) == NUM_QUERIES
+        and all(m["size"] == [h, w] for m in r["masks"])
+        for r, (h, w) in zip(dets, sizes))
+    res = {"images": 4, "seconds": dt, "fwd_tc": after["fwd_tc"]
+           - before["fwd_tc"], "ok": ok}
+    log(f"[seg] Predictor with masks: {json.dumps(res)} | {smi}")
+    if not ok or res["fwd_tc"] != LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"Predictor with masks: {res}")
+    return res
+
+
 def phase_ablation(smi):
     """The port's distillation ablation module on the card, as a record
     (the gate is the CPU test, tests/test_torch_distill_gate.py): the
@@ -2151,6 +2674,10 @@ def main() -> int:
             smi, root, os.path.join(root, "main_out", "checkpoint"))
         student_sd = ckpt.load_params(os.path.join(root,
                                                    "seeded_weights.pth"))
+        torch.cuda.empty_cache()
+        seg = phase_seg(smi, root, os.path.join(root, "main_out",
+                                                "checkpoint"),
+                        os.path.join(root, "distill_out", "checkpoint"))
     torch.cuda.empty_cache()
     # The f32 comparison takes seeded weights, the student's of phase 11 and
     # a teacher from the next seed (what main builds without
@@ -2185,6 +2712,11 @@ def main() -> int:
         return {"bound_ms": t["bound"][kind][0],
                 "bound_by": t["bound"][kind][1]}
 
+    def seg_counts(kind):
+        # Phase 13: launches over its training steps and its eval batches.
+        return {"seg_launches": seg["train_launches"][kind],
+                "seg_eval_launches": seg["eval_launches"][kind]}
+
     # Every ms below is device_ms's device time per call (phase 10),
     # except the LSA plain version's, which runs on the host.
     record = {"kernels": [{
@@ -2200,6 +2732,7 @@ def main() -> int:
         # per cluster-eval batch), and its cluster evals alone.
         "distill_launches": dl["fwd_tc"],
         "distill_eval_launches": distill["eval_tc_launches"],
+        **seg_counts("fwd_tc"),
         "max_abs_err": max(c["max_abs_err"] for c in cases
                            if c["dtype"] == "bfloat16"),
         "ms": serve["fwd"],
@@ -2231,6 +2764,7 @@ def main() -> int:
         "replaces": "toist_tpu/ops/flash_attention.py:102",
         "launches": tl["dropout"],
         "distill_launches": dl["dropout"],
+        **seg_counts("dropout"),
         "max_abs_err": max(c["max_abs_err"] for c in attn if c["rate"]),
         # The tensor-core forward at rate 0.1, and what the rate adds to
         # each of the three kernels (bf16, training encoder shape).
@@ -2247,6 +2781,7 @@ def main() -> int:
         "replaces": "toist_tpu/ops/flash_attention.py:147",
         "launches": tl["dkv_tc"],
         "distill_launches": dl["dkv_tc"],
+        **seg_counts("dkv_tc"),
         "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dkv"],
         "ms_rate_0.1": enc[DROP_RATE]["dkv"],
@@ -2267,6 +2802,7 @@ def main() -> int:
         "replaces": "toist_tpu/ops/flash_attention.py:193",
         "launches": tl["dq_tc"],
         "distill_launches": dl["dq_tc"],
+        **seg_counts("dq_tc"),
         "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dq"],
         "ms_rate_0.1": enc[DROP_RATE]["dq"],
@@ -2285,6 +2821,7 @@ def main() -> int:
         # Phase 12: 3 per distillation step (the noun and sth matchers, the
         # softkd re-pairing), 1 per cluster-eval batch.
         "distill_launches": dl["lsa"],
+        **seg_counts("lsa"),
         "max_abs_err": 0,
         "ms": lsa_main["ms"],
         "plain_ms": lsa_main["plain_ms"],
@@ -2305,6 +2842,12 @@ def main() -> int:
             "eval_runs", "mean_ap50", "checkpoints", "launches",
             "train_steps", "pairs_s", "peak_gib", "profile", "cluster",
             "bank_update_count", "f32_kernel_vs_plain")},
+        "seg": {k: seg[k] for k in (
+            "train_steps", "img_s", "step_ms", "peak_gib_train",
+            "peak_gib_with_eval", "resident_gib_before", "eval_runs",
+            "mask_ap50", "checkpoints",
+            "train_launches", "eval_launches", "profile", "dis",
+            "f32_kernel_vs_plain", "predictor")},
         "ablation": ablation}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ utils/convert.load_reference_checkpoint) on the CPU.
 - a distillation checkpoint has the reference's keys (the teacher as
   ``model_noun`` and ``model_noun_ema``, the bank as ``cluster_criterion``),
   restores bit for bit and steps on as the live state does, and both
-  packages read its ``model`` and ``model_noun``.
+  packages read its ``model`` and ``model_noun``;
+- a segmentation checkpoint (bf16, frozen detector) holds the mask head,
+  its masters, EMA and moments (``out_lay`` in f32), restores bit for bit
+  and steps on as the live state does.
 """
 import argparse
 import dataclasses
@@ -336,3 +339,36 @@ def test_distillation_checkpoint(tmp_path, dtype):
             assert torch.equal(v, sd[k]), (key, k)
     assert not torch.equal(payload["model"]["query_embed.weight"],
                            payload["model_noun"]["query_embed.weight"])
+
+
+def test_mask_head_survives_save_and_restore(tmp_path):
+    from tests.seg_cases import seg_batch as _batch
+    from tests.test_torch_segmentation import SEG, _state_dict
+
+    mcfg = dataclasses.replace(SEG, compute_dtype="bfloat16",
+                               frozen_detector=True, dropout=0.1,
+                               resizer_dropout=0.1)
+    cfg = pconfig.Config.from_sources(None, {
+        "model": dataclasses.asdict(mcfg), "loss": {"aux_loss": False}})
+    sd = {k: torch.from_numpy(v) for k, v in _state_dict().items()}
+    model = TOIST.from_state_dict(sd, cfg.model, device="cpu")
+    assert model.mask_head.out_lay.weight.dtype == torch.float32
+    assert model.mask_head.lay1.weight.dtype == torch.bfloat16
+    state = init_train_state(model, cfg, steps_per_epoch=10, total_steps=100)
+    step = make_train_step(cfg, build_weight_dict(cfg.loss, True, 1))
+    for seed in (1, 2):
+        state, _ = step(state, _batch(seed))
+    path = str(tmp_path / "checkpoint")
+    ckpt.save(path, state, epoch=0, args=cfg.to_dict())
+    payload = torch.load(path)
+    heads = [k for k in payload["model"]
+             if k.startswith(("bbox_attention.", "mask_head."))]
+    assert len(heads) == 32 and len(payload["optimizer"]["state"]) == 32
+    for k in heads:
+        assert torch.equal(payload["model_ema"][k], state.ema[k])
+    restored, _ = ckpt.restore(path, cfg, 10, 100, device="cpu")
+    _assert_states_equal(restored, state)
+    state, sc = step(state, _batch(3))
+    restored, sc2 = step(restored, _batch(3))
+    _assert_states_equal(restored, state)
+    assert float(sc["loss_mask"]) == float(sc2["loss_mask"])

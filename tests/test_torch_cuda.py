@@ -454,3 +454,80 @@ def test_softkd_on_the_card_launches_the_lsa_kernel(cuda):
     got = loss_softkd_levels(*(torch.from_numpy(a).cuda() for a in args))
     assert solve_lsa_batch.launches - before == 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)
+
+
+def test_mask_postprocess_on_the_card_matches_the_cpu(cuda):
+    """The device mask postprocess on CUDA logits against the same function
+    on the same logits on the CPU (the cases of tests/seg_cases.py: the
+    transitions path, the packed path, mixed, an invalid sample, an
+    original over 640x640): equal RLEs except at knife-edge pixels;
+    "device_ms" from CUDA events."""
+    from seg_cases import assert_rles_agree, postprocess_case
+    from toist_tpu_torch.models.postprocess import postprocess_masks_device
+
+    for case in ("blobs", "salt", "mixed", "invalid", "oversized"):
+        logits, sizes, orig, valid = postprocess_case(case)
+        want = postprocess_masks_device(torch.from_numpy(logits), sizes,
+                                        orig, valid)
+        timings = {}
+        got = postprocess_masks_device(torch.from_numpy(logits).cuda(),
+                                       sizes, orig, valid, timings=timings)
+        assert_rles_agree(got, want, logits, sizes, orig, valid)
+        assert timings["device_ms"] > 0, case
+
+
+def test_frozen_detector_step_launches_no_attention_backward(cuda):
+    """One bf16 train step of a 6+6-layer seg model under frozen_detector
+    at a canvas whose joint sequence reaches the kernels: 12 tensor-core
+    forwards with dropout, no dK/dV or dQ launch, one LSA; only the mask
+    branch trains (its f32 masters move: one AdamW step is below a bf16
+    ulp of a GroupNorm scale of 1), the detector stays bit for bit."""
+    from seg_cases import VOCAB, seg_batch
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.models.init import init_like_jax
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.train.criterion import build_weight_dict
+    from toist_tpu_torch.train.state import init_train_state, model_masters
+    from toist_tpu_torch.train.step import make_train_step
+
+    cfg = Config.from_sources(None, {
+        "model": {"backbone": "resnet18-test", "hidden_dim": 128,
+                  "nheads": 8, "dim_feedforward": 128, "num_queries": 8,
+                  "contrastive_align_loss": False,
+                  "mask_model": "smallconv", "frozen_detector": True,
+                  "text_hidden": 64, "text_layers": 1, "text_heads": 4,
+                  "text_intermediate": 128},
+        "loss": {"aux_loss": False}})
+    assert cfg.model.dropout == 0.1 and cfg.model.enc_layers == 6
+    with torch.device("cuda"):
+        model = TOIST(cfg.model, text_vocab_size=VOCAB)
+    init_like_jax(model, torch.Generator("cuda").manual_seed(0))
+    model.to_compute_dtype()
+    state = init_train_state(model, cfg, 10, 100)
+    batch = seg_batch()
+    pad = {"images": ((0, 0), (0, 384), (0, 512), (0, 0)),
+           "image_mask": ((0, 0), (0, 384), (0, 512)),
+           "gt_masks": ((0, 0), (0, 0), (0, 96), (0, 128))}
+    for k, p in pad.items():                    # a 480x640 canvas
+        batch[k] = np.pad(batch[k], p, constant_values=k == "image_mask")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    masters = {n: m.detach().clone() for n, _, m in model_masters(state)}
+    assert {n.split(".")[0] for n in masters} == {"bbox_attention",
+                                                  "mask_head"}
+    counts = ("launches", "fwd_tc_launches", "dkv_launches", "dq_launches",
+              "dropout_launches")
+    c0 = [getattr(flash_attention, c) for c in counts]
+    l0 = solve_lsa_batch.launches
+    state, sc = make_train_step(cfg, build_weight_dict(cfg.loss, True,
+                                                       6))(state, batch)
+    torch.cuda.synchronize()
+    got = [getattr(flash_attention, c) - v for c, v in zip(counts, c0)]
+    assert got == [12, 12, 0, 0, 12]
+    assert solve_lsa_batch.launches - l0 == 1
+    assert torch.isfinite(sc["loss_mask"]) and torch.isfinite(
+        sc["loss_dice"])
+    for n, _, m in model_masters(state):
+        assert not torch.equal(m, masters[n]), n
+    for n, p in model.named_parameters():
+        if n not in masters:
+            assert torch.equal(p, before[n]), n

@@ -8,7 +8,9 @@ against the JAX package on the CPU.
   image id) give identical per-task stats: the loop's batching, padded rows,
   duplicate images and task order, exactly.
 - The tiny model on shared weights through both ``evaluate``s: per-batch
-  detections within scores 1e-5 and boxes 1e-3 px, and equal stats.
+  detections within scores 1e-5 and boxes 1e-3 px, and equal stats; the
+  tiny seg model with bbox and segm: mask logits within 2e-3 of their max
+  abs and equal bbox and segm stats.
 """
 import dataclasses
 
@@ -322,9 +324,60 @@ def test_evaluate_loop_matches_jax(fixture_sets, batch_size):
     assert pevaluator.mean_ap50(got) > 0.5        # the jittered GTs score
 
 
-def test_evaluate_rejects_segm():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pengine.evaluate(None, {}, None, 2, iou_types=("bbox", "segm"))
+def test_evaluate_segm_matches_jax(fixture_sets):
+    """The tiny seg model (tests/test_torch_segmentation.py's, on the
+    fixture's vocabulary) through both evaluates with bbox and segm: each
+    batch's mask logits within 2e-3 of their max abs, and equal bbox and
+    segm stats (the masks through each package's device postprocess)."""
+    from toist_tpu.data.batcher import BucketSpec as JSpec
+    from tests.test_torch_segmentation import SEG
+
+    jsets, psets, spec, _, _, vocab = fixture_sets
+    sd = synth_reference_state_dict(
+        stage_sizes=(1, 1, 1, 1), enc=1, dec=1, d=128, dim_feedforward=128,
+        text_layers=1, text_hidden=64, text_intermediate=128, num_queries=8,
+        vocab_size=vocab, contrastive=False, with_masks=True, seed=3)
+    sd["bbox_embed.layers.2.weight"][:2] *= 8.0
+    sd["bbox_embed.layers.2.bias"][:] = [0.0, 0.0, -0.7, -0.7]
+    params, frozen = convert_torch_state_dict(
+        sd, d_model=128, enc_layers=1, dec_layers=1,
+        stage_sizes=(1, 1, 1, 1), with_masks=True)
+    over = {"run": {"compute_eval_losses": False},
+            "model": dataclasses.asdict(SEG)}
+    jcfg = JConfig.from_sources(None, over)
+    pcfg = pconfig.Config.from_sources(None, over)
+    jmodel = build_model(SEG, text_vocab_size=vocab)
+    wd = build_weight_dict(jcfg.loss, True, 1)
+    jeval = jax_make_eval_step(jmodel, jcfg, wd, frozen, with_masks=True)
+    port = TOIST.from_state_dict(jax_params_to_state_dict(params, frozen),
+                                 pcfg.model, device="cpu")
+    peval = make_eval_step(port, pcfg, wd)
+    masks = {"jax": [], "port": []}
+
+    def jstep(p, batch):
+        res = jeval(p, batch)
+        masks["jax"].append(np.asarray(res["pred_masks"]))
+        return res
+
+    def pstep(batch):
+        res = peval(batch)
+        masks["port"].append(res["pred_masks"].numpy())
+        return res
+
+    iou = ("bbox", "segm")
+    want = jengine.evaluate(jstep, params, jsets, JSpec(**spec), 3,
+                            iou_types=iou)
+    got = pengine.evaluate(pstep, psets, BucketSpec(**spec), 3,
+                           iou_types=iou)
+    assert len(masks["port"]) == len(masks["jax"]) == 4
+    for a, b in zip(masks["port"], masks["jax"]):
+        assert a.shape == b.shape == (3, 8, 32, 32)
+        np.testing.assert_allclose(a, b, atol=2e-3 * np.abs(b).max())
+        assert (a > 0).any() and (a < 0).any()       # masks neither empty
+    _assert_same_results(got, want)                  # nor full
+    # Every task's GT masks were scored (a random model's AP is 0 here).
+    assert all(set(s) == {"bbox", "segm"} and s["segm"][1] >= 0
+               for s in got.values())
 
 
 def _ties_only(jrecs, precs, tol=1e-5):

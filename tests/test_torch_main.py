@@ -14,7 +14,12 @@ mode that the port does not run yet raises. Distillation with softkd,
 nsthl2 and the cluster bank, its teacher through ``run.load_noun``: one
 epoch writes the distillation checkpoint and evaluates with the cluster
 snapping; ``--eval --resume`` restores the state bit for bit and gives the
-in-run eval's stats.
+in-run eval's stats. Segmentation (train_seg's settings at hidden 128):
+``--load`` of a detection checkpoint keeps the mask head's fresh init and
+drops the checkpoint's contrastive projections, the frozen detector comes
+back bit for bit, the eval logs the mask AP@0.5 and ``--eval --resume``
+gives the in-run eval's stats; train_seg_dis (``loss.cluster``) runs one
+epoch and evaluates bbox and segm with the cluster snapping.
 """
 import json
 import os
@@ -167,7 +172,6 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize("mode", [
-    ("model", "mask_model", "smallconv"),
     ("run", "mesh_shape", [2]), ("run", "profile_dir", "trace"),
     ("run", "pretrained_backbone", "r101.pth"),
     ("run", "pretrained_text", "roberta.pth")])
@@ -244,3 +248,79 @@ def test_distillation_main_trains_and_resumes(tmp_path, monkeypatch):
     assert main(resumed, device="cpu") == ev["mean_ap50"]
     [again] = _log(str(tmp_path / "eval_resume"))
     assert again["per_task"] == ev["per_task"]
+
+
+def _seg_overrides(root, out):
+    over = _overrides(root, out, "frozen_bn")
+    over["model"].update(hidden_dim=128, nheads=8, enc_layers=1,
+                         dec_layers=1, mask_model="smallconv",
+                         frozen_detector=True)
+    over["optim"]["epochs"] = 1
+    over["loss"] = {"aux_loss": False}
+    return over
+
+
+@pytest.mark.parametrize("cluster", [False, True])
+def test_segmentation_main_from_a_detection_checkpoint(tmp_path, cluster):
+    """train_seg (and, with ``loss.cluster``, train_seg_dis) from a
+    detection checkpoint through ``main``."""
+    from toist_tpu_torch.train import checkpoint as ckpt
+
+    root = generate_fixture(str(tmp_path / "data"), num_tasks=2,
+                            imgs_per_split=4, img_size=(96, 128), seed=1)
+    out = str(tmp_path / "out")
+    over = _seg_overrides(root, out)
+    if cluster:
+        over["loss"].update(cluster=True, cluster_memory_size=8,
+                            cluster_num=2, kmeans_max_iters=4)
+    cfg = Config.from_sources(None, over)
+    det = synth_reference_state_dict(
+        stage_sizes=(1, 1, 1, 1), enc=1, dec=1, d=128, dim_feedforward=128,
+        text_layers=2, text_hidden=64, text_intermediate=128, num_queries=12,
+        vocab_size=build_tokenizer(cfg).vocab_size, contrastive=True,
+        with_masks=False, seed=3)
+    assert any(k.startswith("contrastive_align") for k in det)
+    det = {k: torch.from_numpy(v) for k, v in det.items()}
+    torch.save({"model": det}, str(tmp_path / "det.pth"))
+    over["run"]["load"] = str(tmp_path / "det.pth")
+    main(Config.from_sources(None, over), device="cpu")
+
+    saved = torch.load(os.path.join(out, "checkpoint"))
+    for key in ("model", "model_ema"):
+        sd = saved[key]
+        assert {k for k in sd if k not in det} == {
+            k for k in sd if k.startswith(("bbox_attention.", "mask_head."))}
+        assert len([k for k in sd if k.startswith("mask_head.")]) == 28
+        assert not any(k.startswith("contrastive_align") for k in sd)
+        for k, v in sd.items():          # the frozen detector, bit for bit
+            if k in det:
+                assert torch.equal(v, det[k]), (key, k)
+    assert len(saved["optimizer"]["state"]) == 32     # the mask branch only
+    log = _log(out)
+    steps = [r for r in log if r["kind"] == "train_step"]
+    assert all(np.isfinite(r["loss"]) for r in steps)
+    [ev] = [r for r in log if r["kind"] == "eval"]
+    assert np.isfinite(ev["map@0.5_masks"])
+    for stats in ev["per_task"].values():
+        assert set(stats) == {"bbox", "segm"}
+    assert ev["map@0.5_masks"] == np.mean(
+        [s["segm"][1] for s in ev["per_task"].values()])
+    if cluster:
+        assert saved["cluster_criterion"]["update_count"].sum() == 0
+        return
+    n = len(steps)
+    restored, _ = ckpt.restore(os.path.join(out, "checkpoint"),
+                               Config.from_sources(None, over), n, n,
+                               device="cpu")
+    mh = {k: v for k, v in restored.model.state_dict().items()
+          if k.startswith("mask_head.")}
+    assert mh["mask_head.out_lay.weight"].dtype == torch.float32
+    assert len(mh) == 28
+    over_eval = dict(over, run={"eval_only": True, "seed": 0,
+                                "resume": os.path.join(out, "checkpoint"),
+                                "output_dir": str(tmp_path / "eval")})
+    assert main(Config.from_sources(None, over_eval),
+                device="cpu") == ev["mean_ap50"]
+    [again] = _log(str(tmp_path / "eval"))
+    assert again["per_task"] == ev["per_task"]
+    assert again["map@0.5_masks"] == ev["map@0.5_masks"]

@@ -2,8 +2,11 @@
 
 Both Predictors get one reference-layout state dict and one tokenizer, and
 answer the same PIL images on the CPU; detections agree within the
-full-model tolerance 2e-3. Also: the port's copy of ``build_tokenizer``
-equals the JAX package's, and importing the port leaves jax unloaded.
+full-model tolerance 2e-3. With a mask head (hidden 128, 8 heads) each
+kept box carries an RLE of its image's original size, within 1% of the
+pixels of the JAX Predictor's mask. Also: the port's copy of
+``build_tokenizer`` equals the JAX package's, and importing the port leaves
+jax unloaded.
 """
 import os
 import subprocess
@@ -81,6 +84,42 @@ def test_predictor_matches_jax(predictors):
     port.score_threshold = 1.1
     assert port(imgs[:1], task_ids=[1])[0]["scores"].size == 0
     port.score_threshold = 0.0
+
+
+def test_predictor_returns_masks():
+    from toist_tpu.ops import rle as jrle
+
+    over = {"hidden_dim": 128, "nheads": 8, "mask_model": "smallconv"}
+    cfg, pcfg = (c.__class__.from_sources(None, dict(
+        c.to_dict(), model=dict(c.to_dict()["model"], **over)))
+        for c in (_cfg(), _cfg(pconfig.Config)))
+    assert cfg.model.masks and pcfg.model.masks
+    tokenizer = captions.build_tokenizer(pcfg)
+    sd = synth_reference_state_dict(
+        stage_sizes=(1, 1, 1, 1), enc=1, dec=1, d=128, dim_feedforward=128,
+        text_layers=1, text_hidden=64, text_intermediate=128,
+        num_queries=10, vocab_size=tokenizer.vocab_size, contrastive=False,
+        with_masks=True, seed=2)
+    params, frozen = convert_torch_state_dict(
+        sd, d_model=128, enc_layers=1, dec_layers=1,
+        stage_sizes=(1, 1, 1, 1), with_masks=True)
+    jmodel = build_model(cfg.model, text_vocab_size=tokenizer.vocab_size)
+    jax_pred = JaxPredictor(jmodel, params, frozen, tokenizer, cfg)
+    port = Predictor.from_state_dict(jax_params_to_state_dict(params, frozen),
+                                     pcfg, device="cpu", tokenizer=tokenizer)
+    rng = np.random.default_rng(4)
+    imgs = [Image.fromarray(rng.integers(0, 255, (120, 160, 3), np.uint8)),
+            Image.fromarray(rng.integers(0, 255, (90, 70, 3), np.uint8))]
+    port.score_threshold = jax_pred.score_threshold = 0.3
+    want = jax_pred(imgs, task_ids=[3, 5])
+    got = port(imgs, task_ids=[3, 5])
+    for g, w, im in zip(got, want, imgs):
+        assert len(g["masks"]) == len(g["scores"]) == len(w["masks"]) > 0
+        np.testing.assert_allclose(g["scores"], w["scores"], atol=TOL)
+        for rg, rw in zip(g["masks"], w["masks"]):
+            assert rg["size"] == [im.size[1], im.size[0]]
+            diff = (jrle.decode(rg) != jrle.decode(rw)).sum()
+            assert diff <= 0.01 * im.size[0] * im.size[1]
 
 
 def test_predict_batch_half_empty(predictors):

@@ -1,5 +1,5 @@
-"""Training / evaluation entry point for detection and noun-pronoun
-distillation (the reference's main.py:277-742; counterpart of
+"""Training / evaluation entry point for detection, segmentation and
+noun-pronoun distillation (the reference's main.py:277-742; counterpart of
 ``toist_tpu/main.py``).
 
 Workflow: config -> tokenizer (HF vocab files if present, else a BPE trained
@@ -15,13 +15,21 @@ batches: the teacher is a second model from ``run.seed + 1``, or the
 weights of ``run.load_noun``. ``loss.cluster`` adds the cluster bank, and
 the eval then snaps the "something" span to its cluster center.
 
+Segmentation (``model.mask_model=smallconv``, which sets ``model.masks``)
+adds the mask head and its focal and dice losses; ``--load`` of a
+detection checkpoint keeps the fresh mask-head init, and with
+``model.frozen_detector`` only the mask branch trains. The eval then
+scores bbox and segm, and the logs gain the mask AP@0.5.
+
 Run:  python -m toist_tpu_torch.main --config configs/fixture.json \\
           [--eval] [--resume P] [--load P] [--output-dir D] [--set k=v ...]
           [--device cpu]
 
 The model runs on the card (``--device cuda``, the default) unless the
 caller asks for another device. Modes of the JAX ``main`` that this port
-does not run yet raise ``NotImplementedError`` naming their ROADMAP item.
+does not run yet (more than one device, ``run.profile_dir``, the
+pretrained converters) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from toist_tpu_torch.config import Config
@@ -84,7 +93,6 @@ def check_ported(cfg: Config) -> None:
     """Raise on a configuration that the JAX ``main`` runs and the port
     does not run yet."""
     unported = [
-        (cfg.model.masks, "model.masks", 6),
         (process_count() > 1
          or any(n not in (-1, 1) for n in cfg.run.mesh_shape),
          "more than one device", 7),
@@ -124,9 +132,11 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
     train_sets = []
     if not cfg.run.eval_only:
         train_sets = [build_task_dataset(cfg.data, t, "train", tokenizer,
+                                         masks=cfg.model.masks,
                                          distillation=cfg.loss.distillation)
                       for t in cfg.data.tasks]
-    val_sets = {t: build_task_dataset(cfg.data, t, "val", tokenizer)
+    val_sets = {t: build_task_dataset(cfg.data, t, "val", tokenizer,
+                                      masks=cfg.model.masks)
                 for t in cfg.data.tasks}
 
     train_iter = None
@@ -208,16 +218,24 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
     def run_eval(epoch: int = 0) -> float:
         if eval_model is not state.model:
             eval_model.load_state_dict(ckpt.full_state_dict(state, ema=True))
-        results = engine.evaluate(eval_step, val_sets, eval_spec,
-                                  batch_size=cfg.optim.valid_batch_size)
+        results = engine.evaluate(
+            eval_step, val_sets, eval_spec,
+            batch_size=cfg.optim.valid_batch_size,
+            iou_types=("bbox", "segm") if cfg.model.masks else ("bbox",))
         m = mean_ap50(results)
-        jsonl.write({"kind": "eval", "mean_ap50": m,
-                     "per_task": {t: {k: v.tolist() for k, v in s.items()}
-                                  for t, s in results.items()}})
         # Reference TB tags: mean + per-task AP@0.5 (main.py:697-711).
         row = {"map@0.5_bbox": m}
         for t, stats in results.items():
             row[f"{t:02d}_ap@0.5_bbox"] = float(stats["bbox"][1])
+            if "segm" in stats:
+                row[f"{t:02d}_ap@0.5_masks"] = float(stats["segm"][1])
+        record = {"kind": "eval", "mean_ap50": m,
+                  "per_task": {t: {k: v.tolist() for k, v in s.items()}
+                               for t, s in results.items()}}
+        if cfg.model.masks and results:
+            row["map@0.5_masks"] = record["map@0.5_masks"] = float(
+                np.mean([s["segm"][1] for s in results.values()]))
+        jsonl.write(record)
         tb.add_scalars(row, step=epoch)
         return m
 

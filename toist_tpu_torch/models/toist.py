@@ -10,8 +10,10 @@ reference checkpoint's, so a reference-layout state dict loads with
 Compute dtype: the trunk (backbone, input_proj, text encoder, resizer, joint
 transformer) runs in ``cfg.compute_dtype`` after ``to_compute_dtype()``; the
 class/box heads and contrastive projections run in f32 on an f32 copy of the
-decoder output, as in the JAX package. Backbone features in the cache are
-NCHW (channels_last memory); token tensors are [B, S, D].
+decoder output, as in the JAX package. With ``cfg.masks`` the mask branch
+(``bbox_attention``, ``mask_head``; ``compute_masks``) joins the trunk's
+cast, and the head's last convolution stays f32. Backbone features in the
+cache are NCHW (channels_last memory); token tensors are [B, S, D].
 
 Training mode (``.train()``) drops as the JAX model does with
 ``deterministic=False``; ``encode``, ``decode`` and ``forward`` then take the
@@ -30,6 +32,8 @@ from toist_tpu_torch.models.layers import MLP, FeatureResizer
 from toist_tpu_torch.models.position_encoding import (
     LearnedPositionEmbedding2D, SinePositionEmbedding)
 from toist_tpu_torch.models.resnet import Backbone, downsample_mask
+from toist_tpu_torch.models.segmentation import (MaskHeadSmallConv,
+                                                 MHAttentionMap)
 from toist_tpu_torch.models.text_encoder import RobertaEncoder
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -72,9 +76,6 @@ class _Transformer(nn.Module):
 class TOIST(nn.Module):
     def __init__(self, cfg: ModelConfig, text_vocab_size: int = 50265):
         super().__init__()
-        if cfg.masks:
-            raise NotImplementedError(
-                "the mask head belongs to the segmentation slice")
         self.cfg = cfg
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         d = cfg.hidden_dim
@@ -92,6 +93,10 @@ class TOIST(nn.Module):
             h = cfg.contrastive_hdim
             self.contrastive_align_projection_image = nn.Linear(d, h)
             self.contrastive_align_projection_text = nn.Linear(d, h)
+        if cfg.masks:
+            # Every mask_head_layout builds the flat head (segmentation.py).
+            self.bbox_attention = MHAttentionMap(d, cfg.nheads)
+            self.mask_head = MaskHeadSmallConv(d + cfg.nheads, d)
 
     @classmethod
     def from_state_dict(cls, state_dict: Mapping[str, torch.Tensor],
@@ -108,12 +113,18 @@ class TOIST(nn.Module):
         return model.to_compute_dtype().eval()
 
     def to_compute_dtype(self) -> "TOIST":
-        """Cast the trunk to the compute dtype (convolutions channels_last);
-        the heads stay f32."""
+        """Cast the trunk and the mask branch to the compute dtype
+        (convolutions channels_last); the class / box heads, the
+        contrastive projections and the mask head's ``out_lay`` stay
+        f32."""
         dt = self.compute_dtype
         for m in (self.backbone, self.input_proj):
             m.to(dtype=dt, memory_format=torch.channels_last)
         self.transformer.to(dt)
+        if self.cfg.masks:
+            self.bbox_attention.to(dt)
+            self.mask_head.to(dtype=dt, memory_format=torch.channels_last)
+            self.mask_head.out_lay.float()
         return self
 
     def encode(self, images: torch.Tensor, image_mask: torch.Tensor,
@@ -215,6 +226,36 @@ class TOIST(nn.Module):
             out["proj_tokens"] = pt
             out["aux_proj_queries"] = pq[:-1]
         return out
+
+    def compute_masks(self, memory_cache: Dict[str, torch.Tensor],
+                      hs_last: torch.Tensor,
+                      query_idx: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """Per-query stride-4 mask logits (reference segmentation.py:
+        156-167). hs_last: [B, Q, D], the last decoder layer; query_idx:
+        an optional [B, N] selection of queries (training runs only the
+        matched ones; None = all). Reads ``img_memory``, never the
+        cluster-snapped ``img_memory_mod``. Returns [B, N or Q, H/4, W/4]
+        f32 logits."""
+        src = memory_cache["src_proj"]                     # [B, D, fh, fw]
+        B, D, fh, fw = src.shape
+        off = 1 if self.cfg.contrastive_loss else 0        # the CLS slot
+        memory = memory_cache["img_memory"][:, off:off + fh * fw].reshape(
+            B, fh, fw, D)
+        if query_idx is not None:
+            sel = query_idx.clamp(0, hs_last.shape[1] - 1).long()
+            hs_last = torch.gather(hs_last, 1,
+                                   sel[..., None].expand(-1, -1, D))
+        N = hs_last.shape[1]
+        att = self.bbox_attention(hs_last, memory,
+                                  memory_cache["feature_mask"])
+        x = torch.cat([src.repeat_interleave(N, dim=0),
+                       att.reshape(B * N, self.cfg.nheads, fh, fw).to(
+                           src.dtype)], dim=1)
+        logits = self.mask_head(x, memory_cache["features_c4"],
+                                memory_cache["features_c3"],
+                                memory_cache["features_c2"], num_queries=N)
+        return logits.reshape(B, N, logits.shape[2], logits.shape[3]).float()
 
     def forward(self, images, image_mask, text_ids, text_mask,
                 generator: Optional[torch.Generator] = None):

@@ -3,12 +3,15 @@
 Counterpart of ``toist_tpu/predict.py:Predictor``: images are bucketed onto
 the static eval canvases (``toist_tpu/data/batcher.py``), each batch runs the
 forward plus ``postprocess_boxes``, and each image gets its boxes sorted by
-score and filtered by the threshold.
+score and filtered by the threshold. A model with a mask head also answers
+with each kept box's mask, a COCO RLE of the original image size
+(``postprocess_masks_device``).
 
 Example:
     predictor = Predictor.from_state_dict(state_dict, cfg, device="cuda")
     dets = predictor(images=[img1, img2], task_ids=[3, 3])
     dets[0]["boxes"], dets[0]["scores"]   # xyxy absolute, 1-P(noobj)
+    dets[0]["masks"]                      # with a mask head: RLE dicts
 
 Canvases are shipped as u8 and normalized on the device, which the JAX
 package shows bit-equal to host normalization (``device_normalize``).
@@ -24,6 +27,7 @@ from toist_tpu_torch.config import Config
 from toist_tpu_torch.data.batcher import BucketSpec, collate, default_buckets
 from toist_tpu_torch.data.tokenizer import RobertaBPE
 from toist_tpu_torch.data.captions import build_tokenizer, task_caption
+from toist_tpu_torch.models.postprocess import postprocess_masks_device
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.train.step import eval_forward
 
@@ -96,8 +100,14 @@ class Predictor:
     def predict_batch(self, batch: Mapping[str, np.ndarray]
                       ) -> List[Dict[str, np.ndarray]]:
         """Run one collated batch; one result per valid row, boxes sorted by
-        score (descending) and filtered by ``score_threshold``."""
-        _, post = eval_forward(self.model, batch)
+        score (descending) and filtered by ``score_threshold``; with a
+        mask head each also holds "masks", the kept boxes' RLEs."""
+        out, post = eval_forward(self.model, batch)
+        masks = None
+        if "pred_masks" in out:
+            masks = postprocess_masks_device(
+                out["pred_masks"], batch["size"], batch["orig_size"],
+                batch["sample_valid"])
         scores = post["scores"].cpu().numpy()
         boxes = post["boxes"].cpu().numpy()
         results = []
@@ -105,14 +115,18 @@ class Predictor:
             sc = scores[row]
             keep = np.argsort(-sc)
             keep = keep[sc[keep] >= self.score_threshold]
-            results.append({"boxes": boxes[row][keep], "scores": sc[keep],
-                            "labels": np.ones(len(keep), np.int32)})
+            res = {"boxes": boxes[row][keep], "scores": sc[keep],
+                   "labels": np.ones(len(keep), np.int32)}
+            if masks is not None:
+                res["masks"] = [masks[row][q] for q in keep]
+            results.append(res)
         return results
 
     def __call__(self, images: Sequence, task_ids: Sequence[int]
                  ) -> List[Dict[str, np.ndarray]]:
         """PIL images + task ids -> one dict per image: {"boxes" [K,4] xyxy
-        absolute, "scores" [K], "labels" [K]}."""
+        absolute, "scores" [K], "labels" [K]}, and "masks" [K] (RLE
+        dicts) with a mask head."""
         from toist_tpu_torch.data.transforms import resize, to_array_u8
 
         if len(images) != len(task_ids):

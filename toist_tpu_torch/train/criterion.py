@@ -12,7 +12,8 @@ per-stream prefixes (``set_criterion(prefix="noun_")``), softkd (the
 teacher's binary object probabilities distilled into the student's on
 matched and on re-paired false-positive queries) and nsthl2 (the student's
 pooled "something" feature pulled to the teacher's pooled noun feature).
-The focal, dice and mask losses belong to the segmentation slice.
+Segmentation adds the sigmoid focal and dice losses on the matched queries'
+stride-4 masks (``mask_losses``).
 """
 from __future__ import annotations
 
@@ -129,6 +130,56 @@ def compute_num_boxes(box_valid: torch.Tensor,
                       sample_valid: torch.Tensor) -> torch.Tensor:
     n = (box_valid & sample_valid[:, None]).sum()
     return n.float().clamp(min=1.0)
+
+
+# The focal loss's class balance and focusing exponent (the reference's
+# defaults, models/segmentation.py:294).
+FOCAL_ALPHA = 0.25
+FOCAL_GAMMA = 2.0
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       valid: torch.Tensor, num_boxes: torch.Tensor
+                       ) -> torch.Tensor:
+    """Reference models/segmentation.py:294-319, masked (``criterion.py:
+    127-139``). logits / targets [B, N, P], valid [B, N] f32."""
+    prob = torch.sigmoid(logits)
+    ce = (logits.clamp(min=0) - logits * targets
+          + torch.log1p(torch.exp(-logits.abs())))
+    p_t = prob * targets + (1 - prob) * (1 - targets)
+    loss = ce * ((1 - p_t) ** FOCAL_GAMMA)
+    loss = loss * (FOCAL_ALPHA * targets + (1 - FOCAL_ALPHA) * (1 - targets))
+    return (loss.mean(-1) * valid).sum() / num_boxes
+
+
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
+              valid: torch.Tensor, num_boxes: torch.Tensor) -> torch.Tensor:
+    """Reference models/segmentation.py:276-291, masked (``criterion.py:
+    142-149``)."""
+    prob = torch.sigmoid(logits)
+    num = 2 * (prob * targets).sum(-1)
+    den = prob.sum(-1) + targets.sum(-1)
+    return ((1 - (num + 1) / (den + 1)) * valid).sum() / num_boxes
+
+
+def mask_losses(pred_masks_sel: torch.Tensor, gt_masks: torch.Tensor,
+                box_valid: torch.Tensor, sample_valid: torch.Tensor,
+                num_boxes: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Focal + dice on the matched queries' masks (reference mdetr.py:
+    827-853, ``criterion.py:158-179``): pred_masks_sel [B, N, h, w] aligned
+    with gt_masks [B, N, h, w] (both at the GT stride 4; the caller gathered
+    each target's matched query through ``compute_masks(query_idx=t2q)``).
+    ``num_boxes`` replaces the batch's valid-box count (gradient
+    accumulation passes global / accum)."""
+    bv = box_valid & sample_valid[:, None]
+    if num_boxes is None:
+        num_boxes = compute_num_boxes(box_valid, sample_valid)
+    src = pred_masks_sel.reshape(*pred_masks_sel.shape[:2], -1)
+    tgt = gt_masks.float().reshape(*gt_masks.shape[:2], -1)
+    v = bv.float()
+    return {"loss_mask": sigmoid_focal_loss(src, tgt, v, num_boxes),
+            "loss_dice": dice_loss(src, tgt, v, num_boxes)}
 
 
 def set_criterion(outputs: Mapping[str, torch.Tensor],

@@ -131,7 +131,9 @@ def make_cluster_eval_step(model: torch.nn.Module, cfg: Config,
     """(bank, batch) -> {"post", "scalars"}: the eval step with the
     "something" span snapped to its cluster center between encode and
     decode (reference engine.py:288-291, mdetr.py:282-312). The bank is
-    read only: the refreshed centers are thrown away.
+    read only: the refreshed centers are thrown away. Under
+    ``model.masks`` it adds "pred_masks" from the unsnapped memory
+    (``toist_tpu/train/distill.py:217-220``; eval_seg_dis).
     ``run.compute_eval_losses`` False skips the criterion."""
     lcfg = cfg.loss
 
@@ -154,6 +156,9 @@ def make_cluster_eval_step(model: torch.nn.Module, cfg: Config,
             scalars = _scalars(losses)
         post = postprocess_boxes(out["pred_logits"], out["pred_boxes"],
                                  x["orig_size"])
-        return {"post": post, "scalars": scalars}
+        result = {"post": post, "scalars": scalars}
+        if cfg.model.masks:
+            result["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
+        return result
 
     return eval_step

@@ -8,7 +8,9 @@ the last one, stopping the process on a non-finite loss as the reference
 does (engine.py:82-85); those steps also go to the JSONL and TensorBoard
 sinks, a distillation step's per-task bank counts with them (engine.py:
 190-193). ``evaluate``: per-task loop -> ``TaskEvaluator`` -> stats vectors +
-mean AP@0.5 over the tasks (engine.py:253-342, main.py:581-590).
+mean AP@0.5 over the tasks (engine.py:253-342, main.py:581-590), with
+iou_types "segm" also the masks through the device postprocess
+(``models/postprocess.start_masks_device`` / ``finish_masks_device``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ import torch
 from toist_tpu_torch.data.batcher import BatchIterator, BucketSpec
 from toist_tpu_torch.eval.evaluator import (TaskEvaluator,
                                             gt_records_from_json, mean_ap50)
+from toist_tpu_torch.models.postprocess import (finish_masks_device,
+                                                start_masks_device)
 from toist_tpu_torch.utils.logging import JsonlLogger, MetricLogger
+from toist_tpu_torch.utils.transfer import finish_to_host, start_to_host
 from toist_tpu_torch.train.state import TrainState
 from toist_tpu_torch.train.step import train_batch_to_device
 
@@ -73,50 +78,22 @@ def train_one_epoch(train_step: Callable, state: TrainState,
     return state, logger.summary()
 
 
-def _start_to_host(post: Dict[str, torch.Tensor],
-                   loss: Optional[torch.Tensor]):
-    """Start the copy of one batch's detections (and eval loss) to the host.
-    From a CUDA device: non-blocking copies into pinned host tensors that
-    are allocated for this batch alone, and an event recorded behind them;
-    ``_finish_to_host`` waits on it. Returns (host tensors, event)."""
-    src = {k: post[k] for k in ("scores", "boxes")}
-    if loss is not None:
-        src["loss"] = loss
-    dev = next(iter(src.values())).device
-    if dev.type != "cuda":
-        return src, None
-    host = {}
-    for k, v in src.items():
-        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-        host[k].copy_(v, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(dev))
-    return host, event
-
-
-def _finish_to_host(handle) -> Dict[str, np.ndarray]:
-    host, event = handle
-    if event is not None:
-        event.synchronize()
-    return {k: v.numpy() for k, v in host.items()}
-
-
 def evaluate(eval_step: Callable, task_datasets: Dict[int, object],
              spec: BucketSpec, batch_size: int, iou_types=("bbox",),
              print_freq: int = 10) -> Dict[int, Dict[str, np.ndarray]]:
-    """Run per-task evaluation; returns {task_id: {'bbox': stats12}}.
+    """Run per-task evaluation; returns {task_id: {'bbox': stats12,
+    'segm': stats12 with iou_types "segm"}}.
 
     ``eval_step(batch)`` (``train/step.make_eval_step``) takes a batcher
-    batch and returns {"post": {"scores", "boxes", ...}, "scalars": {...}}.
-    The loop is double-buffered as the JAX one is: each batch's detections
-    go to the host by non-blocking copies into pinned memory, and the
-    evaluator reads them (after the copies' event) only once the next
-    batch's forward has been issued, so the copies and the host's COCO
-    records overlap the device's work."""
-    if "segm" in iou_types:
-        raise NotImplementedError(
-            "evaluate with iou_types 'segm': the mask path is ROADMAP queue A "
-            "item 6")
+    batch and returns {"post": {"scores", "boxes", ...}, "scalars": {...}},
+    and "pred_masks" for "segm". The loop is double-buffered as the JAX one
+    is: each batch's detections go to the host by non-blocking copies into
+    pinned memory, its mask postprocess is queued on the device with its
+    transitions' copies (``start_masks_device``), and the evaluator reads
+    them (after the copies' events; ``finish_masks_device`` assembles the
+    RLEs) only once the next batch's forward has been issued, so the copies
+    and the host's work overlap the device's."""
+    segm = "segm" in iou_types
     results = {}
     for task_id, ds in task_datasets.items():
         gts = gt_records_from_json(ds.coco.dataset)
@@ -128,20 +105,29 @@ def evaluate(eval_step: Callable, task_datasets: Dict[int, object],
         def _flush(item):
             # Materialize one batch's results on host (blocks on the copies
             # that have been overlapping the next batch's forward).
-            np_b, handle = item
-            host = _finish_to_host(handle)
+            np_b, handle, mask_handle = item
+            host = finish_to_host(handle)
+            masks = (finish_masks_device(mask_handle)
+                     if mask_handle is not None else None)
             evaluator.update(np_b["image_id"], host["scores"],
-                             host["boxes"], valid=np_b["sample_valid"])
+                             host["boxes"], valid=np_b["sample_valid"],
+                             masks=masks)
             if "loss" in host:  # absent w/ compute_eval_losses off
                 logger.update(loss=float(host["loss"]))
 
         pending = None
         for np_batch in logger.log_every(it.epoch(0), total=len(it)):
             res = eval_step(np_batch)
-            handle = _start_to_host(res["post"], res["scalars"].get("loss"))
+            src = {k: res["post"][k] for k in ("scores", "boxes")}
+            if "loss" in res["scalars"]:
+                src["loss"] = res["scalars"]["loss"]
+            handle = start_to_host(src)
+            mask_handle = (start_masks_device(
+                res["pred_masks"], np_batch["size"], np_batch["orig_size"],
+                np_batch["sample_valid"]) if segm else None)
             if pending is not None:
                 _flush(pending)
-            pending = (np_batch, handle)
+            pending = (np_batch, handle, mask_handle)
         if pending is not None:
             _flush(pending)
         evaluator.synchronize_between_processes()

@@ -8,7 +8,10 @@ weighted total, backward, gradient accumulation over microbatches,
 schedules, EMA. The NaN guard is the ``loss_is_finite`` scalar; the epoch
 loop decides to stop. With ``loss.cluster`` the step snaps the "something"
 span to its cluster center between encode and decode and threads the bank
-through ``TrainState.cluster_bank``. Scalars stay on the device: reading
+through ``TrainState.cluster_bank``. With masks (segmentation) the mask
+head runs on the matched queries and adds the focal and dice losses; under
+``model.frozen_detector`` the detector's forward builds no autograd graph,
+so only the mask branch has a backward. Scalars stay on the device: reading
 them is the caller's host sync. The distillation step (``train/distill.py``)
 shares ``accumulate_gradients`` and ``apply_gradients``.
 """
@@ -30,6 +33,7 @@ INPUT_KEYS = ("images", "image_mask", "text_ids", "text_mask")
 TARGET_KEYS = ("boxes", "positive_map", "box_valid", "sample_valid")
 # What the cluster bank and the distillation losses read besides.
 CLUSTER_KEYS = ("noun_token_spans", "caption_noun_span", "task_id")
+MASK_KEYS = ("gt_masks",)
 EVAL_KEYS = INPUT_KEYS + ("orig_size",)
 TRAIN_KEYS = INPUT_KEYS + TARGET_KEYS
 
@@ -58,8 +62,8 @@ def train_batch_to_device(batch, device: torch.device
         return {k: train_batch_to_device(b, device) for k, b in batch.items()}
     if all(isinstance(batch[k], torch.Tensor) for k in TRAIN_KEYS):
         return dict(batch)
-    return batch_to_device(batch, device, [k for k in TRAIN_KEYS
-                                           + CLUSTER_KEYS if k in batch])
+    return batch_to_device(batch, device, [
+        k for k in TRAIN_KEYS + CLUSTER_KEYS + MASK_KEYS if k in batch])
 
 
 def dropout_generator(device: torch.device, seed: int, step: int,
@@ -84,18 +88,32 @@ def forward_losses(model: torch.nn.Module, batch: Mapping[str, torch.Tensor],
     matchings and "loss", the bank). With a cluster ``bank``
     (``loss.cluster`` without distillation, step.py:127-177), the
     "something" span is snapped to its cluster center between encode and
-    decode, with no cluster loss; the bank's centers move on."""
+    decode, with no cluster loss; the bank's centers move on. With
+    ``model.masks`` the mask head runs on the matched queries (the matching
+    detached) and adds "loss_mask" and "loss_dice" (step.py:164-173).
+    Under ``model.frozen_detector`` the detector's forward runs without
+    autograd: the counterpart of ``stop_frozen_gradients``, and no
+    attention backward."""
     args = [batch[k] for k in INPUT_KEYS]
-    if bank is None:
-        out, _ = model(*args, generator=generator)
-    else:
-        cache = model.encode(*args, generator=generator)
-        bank, cache["img_memory_mod"], _ = cl.student_cluster(
-            bank, cache, batch, cfg.loss.kmeans_max_iters,
-            cfg.loss.kmeans_tol, train=False)
-        out = model.decode(cache, use_modified_memory=True,
-                           generator=generator)
-    losses = crit.set_criterion(out, batch, cfg.loss)
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and not cfg.model.frozen_detector):
+        if bank is None:
+            out, cache = model(*args, generator=generator)
+        else:
+            cache = model.encode(*args, generator=generator)
+            bank, cache["img_memory_mod"], _ = cl.student_cluster(
+                bank, cache, batch, cfg.loss.kmeans_max_iters,
+                cfg.loss.kmeans_tol, train=False)
+            out = model.decode(cache, use_modified_memory=True,
+                               generator=generator)
+        losses = crit.set_criterion(out, batch, cfg.loss)
+    if cfg.model.masks:
+        pred_masks_sel = model.compute_masks(
+            cache, out["hs"][-1], losses["_tgt2query"].detach())
+        losses.update(crit.mask_losses(
+            pred_masks_sel, batch["gt_masks"], batch["box_valid"],
+            batch["sample_valid"],
+            num_boxes=batch.get("num_boxes_override")))
     total = crit.total_loss(losses, weight_dict)
     losses["loss"] = total
     return total, losses, bank
@@ -195,7 +213,8 @@ def make_train_step(cfg: Config, weight_dict: Mapping[str, float]
                     ) -> Callable:
     """(state, batch) -> (state, scalars): ``accumulate_gradients``, then
     ``apply_gradients``. ``batch`` is a batcher ``Batch`` (numpy, copied
-    here) or its tensors already on the model's device."""
+    here) or its tensors already on the model's device (with
+    ``model.masks`` it carries "gt_masks")."""
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         batch = train_batch_to_device(batch, state.masters[0][1].device)
@@ -209,11 +228,14 @@ def make_train_step(cfg: Config, weight_dict: Mapping[str, float]
 def eval_forward(model: torch.nn.Module, batch: Mapping[str, np.ndarray]
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Forward + postprocess of one batch -> (model outputs, postprocessed
-    scores/labels/boxes)."""
+    scores/labels/boxes). A model with a mask head adds "pred_masks"
+    [B, Q, H/4, W/4] to the outputs."""
     device = next(model.parameters()).device
     x = batch_to_device(batch, device)
-    out, _ = model(x["images"], x["image_mask"], x["text_ids"],
-                   x["text_mask"])
+    out, cache = model(x["images"], x["image_mask"], x["text_ids"],
+                       x["text_mask"])
+    if model.cfg.masks:
+        out["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
     post = postprocess_boxes(out["pred_logits"], out["pred_boxes"],
                              x["orig_size"])
     return out, post
@@ -221,7 +243,8 @@ def eval_forward(model: torch.nn.Module, batch: Mapping[str, np.ndarray]
 
 def make_eval_step(model: torch.nn.Module, cfg: Config,
                    weight_dict: Mapping[str, float]) -> Callable:
-    """batch -> {"post": postprocessed detections, "scalars": eval losses}.
+    """batch -> {"post": postprocessed detections, "scalars": eval losses},
+    and with ``model.masks`` "pred_masks", every query's stride-4 logits.
     ``run.compute_eval_losses`` False skips the criterion and its matching
     (scalars {}); predictions are the same either way."""
 
@@ -232,8 +255,8 @@ def make_eval_step(model: torch.nn.Module, cfg: Config,
         keys = EVAL_KEYS + (TARGET_KEYS if cfg.run.compute_eval_losses
                             else ())
         x = batch_to_device(batch, device, keys)
-        out, _ = model(x["images"], x["image_mask"], x["text_ids"],
-                       x["text_mask"])
+        out, cache = model(x["images"], x["image_mask"], x["text_ids"],
+                           x["text_mask"])
         scalars = {}
         if cfg.run.compute_eval_losses:
             losses = crit.set_criterion(out, x, cfg.loss)
@@ -241,6 +264,9 @@ def make_eval_step(model: torch.nn.Module, cfg: Config,
             scalars = _scalars(losses)
         post = postprocess_boxes(out["pred_logits"], out["pred_boxes"],
                                  x["orig_size"])
-        return {"post": post, "scalars": scalars}
+        result = {"post": post, "scalars": scalars}
+        if cfg.model.masks:
+            result["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
+        return result
 
     return eval_step
