@@ -165,7 +165,26 @@ Phases, each of which raises on failure (non-zero exit):
      memory, torch.profiler over 3 steps (kernel ms by kind, the mask head
      forward's span), the seg eval img/s split into the eval step, the
      device postprocess (CUDA events), copy and host RLE ms per batch and
-     the overflowing samples, and each checkpoint's size.
+     the overflowing samples, and each checkpoint's size;
+ 14. data parallel through torchrun (``--standalone``, from the repository
+     root), the flagship model at full width in bf16, dropout 0.1, the
+     seeded weights by --load: (a) one rank on NCCL, one epoch of batch 6
+     (run.shard_opt_state on; ZeRO-1 applies from two ranks), checkpoint
+     and eval, then ``torchrun -m toist_tpu_torch.main --eval --resume``
+     of its checkpoint with the same eval; (b) two ranks sharing the card
+     on gloo (NCCL refuses two ranks on one device): plain detection
+     (batch 6 per rank), distillation (3 pairs per rank) and segmentation
+     (batch 2 per rank, from (b)'s plain checkpoint) on a fixture of 12
+     images per split, each one epoch with its eval. The ranks run
+     ``chip_smoke.py --rank-worker <spec>``, which calls
+     toist_tpu_torch.main with hooks: every rank's train steps launch
+     what phases 8, 12 and 13 count per step, every eval batch 12
+     forwards and 1 LSA; the ranks' f32 masters and banks are equal bit
+     for bit (all-gathered digests); each merged eval equals a one-process
+     --eval --resume of the run's checkpoint; ZeRO-1 holds 0.35-0.65 of
+     (a)'s moment bytes per rank. It prints per run the step ms, img/s,
+     the gradient all-reduce's ms per step (CUDA events), the moment bytes
+     per rank and the host seconds of main's parts.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -177,6 +196,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2643,9 +2663,387 @@ def phase_ablation(smi):
     return res
 
 
+# -- phase 14: data parallel through torchrun ---------------------------------
+
+DP_B = 6              # per-rank train batch (phase 8's)
+DP_PAIRS = 3          # per-rank distillation pairs (phase 12's)
+DP_SEG_B = 2          # per-rank seg batch (phase 13's)
+DP_TIMEOUT = 420      # seconds for one torchrun
+DP_TRAIN = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
+            "dq": LAUNCHES_PER_FORWARD, "fwd_tc": LAUNCHES_PER_FORWARD,
+            "dkv_tc": LAUNCHES_PER_FORWARD, "dq_tc": LAUNCHES_PER_FORWARD,
+            "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1}
+DP_DISTILL = {k: 2 * v for k, v in DP_TRAIN.items()}
+DP_DISTILL["lsa"] = 3
+DP_EVAL = dict({k: 0 for k in DP_TRAIN}, fwd=LAUNCHES_PER_FORWARD,
+               fwd_tc=LAUNCHES_PER_FORWARD, lsa=1)
+
+
+def _digest(tensors):
+    """One hash of the bytes of ``tensors`` in order (bit-for-bit
+    comparison of replicas across ranks)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.blake2b(digest_size=16)
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        if t.dtype in (torch.bfloat16, torch.bool):
+            t = t.view(torch.int16 if t.dtype == torch.bfloat16
+                       else torch.uint8)
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_worker(spec_path):
+    """One rank of phase 14, started by torchrun: toist_tpu_torch.main from
+    parse_args(spec["argv"]), as ``python -m toist_tpu_torch.main`` runs
+    it, with hooks that time each train step (host clock with a device
+    sync), count its kernel launches and each eval batch's, and time each
+    gradient all-reduce (CUDA events around parallel.data.reduce_gradients),
+    and the host seconds of main's parts (the replication of rank 0's
+    state, the epoch, each evaluate, each checkpoint save and the ZeRO-1
+    consolidation in it). Before main leaves the process group the ranks
+    all-gather their records: the digests of the rank's f32 masters and
+    cluster bank, its optimizer's moment bytes, the backend. Rank 0 writes
+    them to spec["result"]."""
+    import torch
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.parallel import data as dp
+    from toist_tpu_torch.train import checkpoint as ckpt
+    from toist_tpu_torch.train import engine
+    from toist_tpu_torch.utils import dist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rec = {"steps": [], "eval_launches": [], "reduce_ms": [], "parts_s": {}}
+
+    def timed(part, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec["parts_s"][part] = rec["parts_s"].get(part, 0.0) + (
+                    time.perf_counter() - t)
+        return run
+    held, events = {}, []
+
+    def counted_train(make):
+        def make_step(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def train_step(state, batch):
+                torch.cuda.synchronize()
+                before = read_counts()
+                t0 = time.perf_counter()
+                state, scalars = step(state, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = read_counts()
+                held["state"] = state
+                sv = (batch["sth"] if "sth" in batch else batch)[
+                    "sample_valid"]
+                rec["steps"].append({
+                    "ms": ms, "images": int(sv.sum()),
+                    "launches": {k: after[k] - before[k] for k in after},
+                    "loss": float(scalars["loss"])})
+                rec["reduce_ms"] += [s.elapsed_time(e) for s, e in events]
+                events.clear()
+                return state, scalars
+            return train_step
+        return make_step
+
+    def counted_eval(make):
+        def make_step(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def eval_step(*a):
+                before = read_counts()
+                res = step(*a)
+                after = read_counts()
+                rec["eval_launches"].append({k: after[k] - before[k]
+                                             for k in after})
+                return res
+            return eval_step
+        return make_step
+
+    reduce = dp.reduce_gradients
+
+    def timed_reduce(grads, scalars):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        reduce(grads, scalars)
+        end.record()
+        events.append((start, end))
+
+    destroy = dist.destroy
+
+    def gathering_destroy():
+        state = held.get("state")
+        rec["parts_s"]["main"] = time.perf_counter() - held["t0"]
+        mine = dict(rec, rank=dist.process_index(),
+                    backend=torch.distributed.get_backend(),
+                    device=str(torch.cuda.current_device()))
+        if state is not None:
+            bank = state.cluster_bank
+            mine.update(
+                masters=_digest(m for _, m in state.masters),
+                n_masters=len(state.masters),
+                bank=_digest([bank.feature_bank, bank.cluster_centers,
+                              bank.update_count, bank.full])
+                if bank is not None else None,
+                zero1=hasattr(state.optimizer, "optim"),
+                moment_bytes=dp.optimizer_state_bytes(state.optimizer))
+        ranks = dist.all_gather_object(mine)
+        if dist.process_index() == 0:
+            with open(spec["result"], "w") as f:
+                json.dump(ranks, f)
+        destroy()
+
+    for name in ("make_train_step", "make_distillation_train_step"):
+        setattr(pmain, name, counted_train(getattr(pmain, name)))
+    for name in ("make_eval_step", "make_cluster_eval_step"):
+        setattr(pmain, name, counted_eval(getattr(pmain, name)))
+    dp.reduce_gradients = timed_reduce
+    dist.destroy = gathering_destroy
+    dp.replicate = timed("replicate", dp.replicate)
+    ckpt.save = timed("checkpoint_save", ckpt.save)
+    engine.evaluate = timed("evaluate", engine.evaluate)
+    engine.train_one_epoch = timed("train_one_epoch", engine.train_one_epoch)
+    ZeroRedundancyOptimizer.consolidate_state_dict = timed(
+        "zero1_consolidate", ZeroRedundancyOptimizer.consolidate_state_dict)
+    reset_counts()
+    held["t0"] = time.perf_counter()
+    pmain.main(pmain.parse_args(spec["argv"]))
+
+
+def _torchrun(nproc, target, out, timeout=DP_TIMEOUT):
+    """Run ``torchrun --standalone --nproc_per_node nproc <target>`` from
+    the repository root; its output goes to <out>.log. Raises unless it
+    exits 0 within ``timeout``."""
+    log_path = out + ".log"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", *target]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"phase 14: torchrun {nproc} {target[:3]} "
+                             f"exited {rc} after {seconds:.1f} s:\n{tail}")
+    return seconds
+
+
+def _dp_run(root, name, nproc, argv):
+    """One torchrun of rank_worker over toist_tpu_torch.main ``argv``;
+    returns (the ranks' records, seconds)."""
+    out = os.path.join(root, name)
+    spec = {"argv": ["--output-dir", out] + argv,
+            "result": out + ".json"}
+    with open(out + ".spec.json", "w") as f:
+        json.dump(spec, f)
+    seconds = _torchrun(nproc, ["chip_smoke.py", "--rank-worker",
+                                out + ".spec.json"], out)
+    with open(spec["result"]) as f:
+        return json.load(f), seconds
+
+
+def _eval_record(out):
+    with open(os.path.join(out, "log.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if r["kind"] == "eval"]
+    return evals[-1]
+
+
+def _dp_summary(ranks, want_train, want_eval, images_per_step):
+    """Per run: steps, launches per step and per eval batch against the
+    single-process phases', masters and bank equal across ranks, step ms,
+    img/s over the ranks, all-reduce ms per step, moment bytes per rank."""
+    steps = [st for r in ranks for st in r["steps"]]
+    bad_train = [st["launches"] for st in steps
+                 if st["launches"] != want_train]
+    bad_eval = [c for r in ranks for c in r["eval_launches"]
+                if c != want_eval]
+    # The first step of a canvas compiles nothing here but warms cuDNN's
+    # algorithm choice and the allocator: left out of the rate.
+    per_rank_ms = [[st["ms"] for st in r["steps"]] for r in ranks]
+    step_ms = [statistics.median(ms[1:] or ms) for ms in per_rank_ms]
+    reduce_ms = [x for r in ranks for x in r["reduce_ms"][1:]]
+    return {
+        "ranks": len(ranks), "backend": ranks[0]["backend"],
+        "steps_per_rank": [len(r["steps"]) for r in ranks],
+        "images_per_rank": [sum(st["images"] for st in r["steps"])
+                            for r in ranks],
+        "bad_train_launches": bad_train[:3],
+        "bad_eval_launches": bad_eval[:3],
+        "train_launches_per_step": steps[0]["launches"] if steps else None,
+        "eval_batches": sum(len(r["eval_launches"]) for r in ranks),
+        "masters_equal": len({r["masters"] for r in ranks}) == 1,
+        "bank_equal": len({r.get("bank") for r in ranks}) == 1,
+        "has_bank": ranks[0].get("bank") is not None,
+        "zero1": [r["zero1"] for r in ranks],
+        "moment_bytes_per_rank": [r["moment_bytes"] for r in ranks],
+        "step_ms_median": max(step_ms),
+        "img_s": images_per_step * 1e3 / max(step_ms),
+        "allreduce_ms_median": (statistics.median(reduce_ms)
+                                if reduce_ms else "not measured"),
+        "allreduce_ms_max": max(reduce_ms) if reduce_ms else "not measured",
+        "step_ms_all": per_rank_ms,
+        "losses": [[round(st["loss"], 6) for st in r["steps"]]
+                   for r in ranks]}
+
+
+def phase_dp(smi, root):
+    """Phase 14: data parallelism through torchrun at full width (the
+    flagship ModelConfig, bf16 with f32 masters, dropout 0.1, the seeded
+    weights by --load) on the fixture.
+
+    (a) One rank on NCCL: ``torchrun --standalone --nproc_per_node 1``
+    over rank_worker, one epoch of plain detection at batch 6 with
+    run.shard_opt_state on (ZeRO-1 applies from 2 ranks), checkpoint and
+    eval; then ``torchrun --standalone --nproc_per_node 1 -m
+    toist_tpu_torch.main --eval --resume`` of its checkpoint, whose eval
+    must equal the in-run one. (b) Two ranks sharing the card (gloo: NCCL
+    refuses two ranks on one device) on a fixture of 12 images per split:
+    plain detection (per-rank batch 6, ZeRO-1), distillation (3 pairs per
+    rank, the bank [14, 1024, 256]) and segmentation (per-rank batch 2,
+    frozen detector, from (b)'s plain checkpoint), each one epoch with its
+    eval. Every rank's train steps launch what phases 8, 12 and 13 count
+    per step, every eval batch what phase 11's does; the ranks' f32
+    masters and banks are equal bit for bit (all-gathered digests); each
+    merged eval equals a one-process ``--eval --resume`` of the run's
+    checkpoint in this process; the ZeRO-1 moments per rank are about half
+    of (a)'s."""
+    import torch
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.fixtures import generate_fixture
+
+    t_phase = time.perf_counter()
+    res = {}
+    key = "transformer.text_encoder.embeddings.word_embeddings.weight"
+    sd = seeded_weights(SEED)
+
+    def fixture(name, per_split):
+        data = os.path.join(root, name)
+        generate_fixture(data, num_tasks=2, imgs_per_split=per_split,
+                         seed=SEED)
+        sets = [f"data.coco_path={data}",
+                f"data.refexp_ann_path={os.path.join(data, 'annotations')}",
+                "data.tasks=[1,2]", "data.num_workers=4", "optim.epochs=1",
+                "optim.eval_skip=1", "run.shard_opt_state=true"]
+        vocab = build_tokenizer(pmain.parse_args(["--set", *sets])
+                                ).vocab_size
+        load = os.path.join(root, f"{name}_weights.pth")
+        torch.save({"model": dict(sd, **{key: sd[key][:vocab]})}, load)
+        return sets, load
+
+    big, big_load = fixture("dp_data", 30)
+    plain_a = big + [f"optim.train_batch_size={DP_B}",
+                     f"optim.valid_batch_size={B}"]
+    ranks_a, secs_a = _dp_run(root, "dp_a", 1,
+                              ["--load", big_load, "--set", *plain_a])
+    out_a = os.path.join(root, "dp_a")
+    secs_a2 = _torchrun(1, ["-m", "toist_tpu_torch.main", "--eval",
+                            "--resume", os.path.join(out_a, "checkpoint"),
+                            "--output-dir", out_a + "_eval", "--set",
+                            *plain_a], out_a + "_eval")
+    res["a"] = dict(_dp_summary(ranks_a, DP_TRAIN, DP_EVAL, DP_B),
+                    seconds=secs_a, eval_seconds=secs_a2,
+                    parts_s=ranks_a[0]["parts_s"],
+                    eval_equal=_eval_record(out_a)["per_task"]
+                    == _eval_record(out_a + "_eval")["per_task"])
+    log(f"[dp] (a) 1 rank: {json.dumps(res['a'])} | {smi}")
+
+    small, small_load = fixture("dp_small", 12)
+    runs = {
+        "plain": (small + [f"optim.train_batch_size={DP_B}",
+                           f"optim.valid_batch_size={B}"],
+                  ["--load", small_load], DP_TRAIN, DP_B),
+        "distill": (small + [f"optim.train_batch_size={DP_PAIRS}",
+                             "optim.valid_batch_size=1",
+                             f"run.load_noun={small_load}", *DISTILL_SETS],
+                    ["--load", small_load], DP_DISTILL, DP_PAIRS),
+        "seg": (small + [f"optim.train_batch_size={DP_SEG_B}",
+                         f"optim.valid_batch_size={SEG_EVAL_B}",
+                         *SEG_SETS],
+                None, SEG_TRAIN_LAUNCHES, DP_SEG_B)}
+    res["b"] = {}
+    for name, (sets, load, want, per_rank) in runs.items():
+        if load is None:     # seg: (b)'s plain detection checkpoint
+            load = ["--load", os.path.join(root, "dp_b_plain", "checkpoint")]
+        out = os.path.join(root, f"dp_b_{name}")
+        ranks, secs = _dp_run(root, f"dp_b_{name}", 2,
+                              load + ["--set", *sets])
+        want_eval = SEG_EVAL_LAUNCHES if name == "seg" else DP_EVAL
+        summary = _dp_summary(ranks, want, want_eval, 2 * per_rank)
+        # The merged eval against one process's eval of the checkpoint.
+        t_one = time.perf_counter()
+        pmain.main(pmain.parse_args(
+            ["--eval", "--resume", os.path.join(out, "checkpoint"),
+             "--output-dir", out + "_one", "--set", *sets]))
+        torch.cuda.empty_cache()
+        summary.update(seconds=secs,
+                       one_process_eval_s=time.perf_counter() - t_one,
+                       parts_s=[r["parts_s"] for r in ranks],
+                       eval_equal=_eval_record(out)[
+            "per_task"] == _eval_record(out + "_one")["per_task"],
+            mean_ap50=_eval_record(out)["mean_ap50"])
+        res["b"][name] = summary
+        log(f"[dp] (b) 2 ranks, {name}: {json.dumps(summary)} | {smi}")
+    a_bytes = res["a"]["moment_bytes_per_rank"][0]
+    plain_b = res["b"]["plain"]
+    res["zero1_share"] = [b / a_bytes for b in
+                          plain_b["moment_bytes_per_rank"]]
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[dp] moments per rank: (a) 1 rank {a_bytes / 2**30:.3f} GiB; (b) "
+        f"2 ranks ZeRO-1 {[round(b / 2**30, 3) for b in plain_b['moment_bytes_per_rank']]} "
+        f"GiB, shares {[round(s, 4) for s in res['zero1_share']]} of (a); "
+        f"step ms (a) {res['a']['step_ms_median']:.1f}, (b) "
+        f"{plain_b['step_ms_median']:.1f}; all-reduce ms per step (a) NCCL "
+        f"{res['a']['allreduce_ms_median']}, (b) gloo "
+        f"{plain_b['allreduce_ms_median']}; phase {res['seconds']:.1f} s "
+        f"| {smi}")
+    bad = []
+    for label, s in [("a", res["a"])] + [(f"b {k}", v)
+                                         for k, v in res["b"].items()]:
+        if (s["bad_train_launches"] or s["bad_eval_launches"]
+                or not s["masters_equal"] or not s["bank_equal"]
+                or not s["eval_equal"] or not s["eval_batches"]
+                or min(s["steps_per_rank"]) < 1
+                or len(set(s["steps_per_rank"])) != 1):
+            bad.append(label)
+    want_backend = [res["a"]["backend"]] + [
+        v["backend"] for v in res["b"].values()]
+    if (bad or want_backend != ["nccl", "gloo", "gloo", "gloo"]
+            or res["a"]["zero1"] != [False]
+            or any(v["zero1"] != [True, True] for v in res["b"].values())
+            or not res["b"]["distill"]["has_bank"]
+            or not all(0.35 < s < 0.65 for s in res["zero1_share"])):
+        raise AssertionError(f"phase 14 (data parallel): {json.dumps(res)}; "
+                             f"failed: {bad}")
+    return res
+
+
 def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.getcwd())
+    if sys.argv[1:2] == ["--rank-worker"]:       # phase 14's ranks
+        rank_worker(sys.argv[2])
+        return 0
     import torch
 
     from toist_tpu_torch.train import checkpoint as ckpt
@@ -2696,6 +3094,9 @@ def main() -> int:
                               softkd[1].cpu().numpy(), "total", lsa_inputs))
     times["lsa"]["real_softkd"] = lsa_time(smi, lsa_cases[-1], lsa_inputs)
     ablation = phase_ablation(smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        dp = phase_dp(smi, root)
 
     serve = times["serving_encoder"]["bfloat16"][0.0]
     serve32 = times["serving_encoder"]["float32"][0.0]
@@ -2711,6 +3112,14 @@ def main() -> int:
     def bound(t, kind):
         return {"bound_ms": t["bound"][kind][0],
                 "bound_by": t["bound"][kind][1]}
+
+    def dp_counts(kind):
+        # Phase 14: launches per train step of each rank (all equal), by
+        # run: (a) one rank, (b) two ranks.
+        return {"dp_launches_per_step": {
+            run: s["train_launches_per_step"][kind]
+            for run, s in [("a", dp["a"])] + [(f"b_{k}", v) for k, v in
+                                             dp["b"].items()]}}
 
     def seg_counts(kind):
         # Phase 13: launches over its training steps and its eval batches.
@@ -2733,6 +3142,7 @@ def main() -> int:
         "distill_launches": dl["fwd_tc"],
         "distill_eval_launches": distill["eval_tc_launches"],
         **seg_counts("fwd_tc"),
+        **dp_counts("fwd_tc"),
         "max_abs_err": max(c["max_abs_err"] for c in cases
                            if c["dtype"] == "bfloat16"),
         "ms": serve["fwd"],
@@ -2765,6 +3175,7 @@ def main() -> int:
         "launches": tl["dropout"],
         "distill_launches": dl["dropout"],
         **seg_counts("dropout"),
+        **dp_counts("dropout"),
         "max_abs_err": max(c["max_abs_err"] for c in attn if c["rate"]),
         # The tensor-core forward at rate 0.1, and what the rate adds to
         # each of the three kernels (bf16, training encoder shape).
@@ -2782,6 +3193,7 @@ def main() -> int:
         "launches": tl["dkv_tc"],
         "distill_launches": dl["dkv_tc"],
         **seg_counts("dkv_tc"),
+        **dp_counts("dkv_tc"),
         "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dkv"],
         "ms_rate_0.1": enc[DROP_RATE]["dkv"],
@@ -2803,6 +3215,7 @@ def main() -> int:
         "launches": tl["dq_tc"],
         "distill_launches": dl["dq_tc"],
         **seg_counts("dq_tc"),
+        **dp_counts("dq_tc"),
         "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dq"],
         "ms_rate_0.1": enc[DROP_RATE]["dq"],
@@ -2822,6 +3235,7 @@ def main() -> int:
         # softkd re-pairing), 1 per cluster-eval batch.
         "distill_launches": dl["lsa"],
         **seg_counts("lsa"),
+        **dp_counts("lsa"),
         "max_abs_err": 0,
         "ms": lsa_main["ms"],
         "plain_ms": lsa_main["plain_ms"],
@@ -2848,7 +3262,7 @@ def main() -> int:
             "mask_ap50", "checkpoints",
             "train_launches", "eval_launches", "profile", "dis",
             "f32_kernel_vs_plain", "predictor")},
-        "ablation": ablation}
+        "ablation": ablation, "dp": dp}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -173,10 +173,9 @@ def test_coco_eval_matches_jax(case):
             np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
-def test_task_evaluator_matches_jax():
-    """gt_records_from_json (polygons to masks), update with padded rows,
-    duplicate images and a score threshold, bbox and segm stats, and
-    mean_ap50."""
+def _evaluator_case():
+    """A COCO-Tasks annotation json of 4 images and two batches of 3
+    detections with masks: image 3 in both, a padded row."""
     rng = np.random.default_rng(4)
     images = [{"id": i, "height": 64, "width": 80} for i in range(1, 5)]
     anns = []
@@ -199,16 +198,28 @@ def test_task_evaluator_matches_jax():
         masks = (rng.uniform(size=(B, Q, 64, 80)) < 0.5).astype(np.uint8)
         valid = np.array([True, True, ids[1] != 4])
         batches.append((np.array(ids), scores, boxes, masks, valid))
+    return coco_json, batches
+
+
+def _evaluate(ev_mod, coco_json, batches):
+    gts = ev_mod.gt_records_from_json(coco_json)
+    ev = ev_mod.TaskEvaluator(gts, iou_types=("bbox", "segm"),
+                              score_threshold=0.1)
+    for ids, scores, boxes, masks, valid in batches:
+        rles = [[ev_mod.rle_ops.encode(m) for m in row] for row in masks]
+        ev.update(ids, scores, boxes, valid=valid, masks=rles)
+    ev.synchronize_between_processes()
+    return ev.summarize()
+
+
+def test_task_evaluator_matches_jax():
+    """gt_records_from_json (polygons to masks), update with padded rows,
+    duplicate images and a score threshold, bbox and segm stats, and
+    mean_ap50."""
+    coco_json, batches = _evaluator_case()
     stats = []
     for ev_mod in (jevaluator, pevaluator):
-        gts = ev_mod.gt_records_from_json(coco_json)
-        ev = ev_mod.TaskEvaluator(gts, iou_types=("bbox", "segm"),
-                                  score_threshold=0.1)
-        for ids, scores, boxes, masks, valid in batches:
-            rles = [[ev_mod.rle_ops.encode(m) for m in row] for row in masks]
-            ev.update(ids, scores, boxes, valid=valid, masks=rles)
-        ev.synchronize_between_processes()
-        s = ev.summarize()
+        s = _evaluate(ev_mod, coco_json, batches)
         stats.append((s, ev_mod.mean_ap50({1: s}),
                       ev_mod.mean_ap50({1: s}, "segm")))
     (sj, mj, msj), (sp, mp, msp) = stats
@@ -218,14 +229,31 @@ def test_task_evaluator_matches_jax():
     assert (mp, msp) == (mj, msj)
 
 
-def test_synchronize_raises_with_more_than_one_process(monkeypatch):
-    from toist_tpu_torch.utils import dist
+def test_synchronize_raises_with_more_than_one_process(tmp_path):
+    """Two ranks (gloo, ``tests/torch_ranks.py``) each update a
+    TaskEvaluator with one of the two batches and merge: image 3, on both
+    ranks, is rank 0's. Both ranks score what one evaluator of both batches
+    scores, as the JAX package's does."""
+    from tests.torch_ranks import Ranks
 
-    ev = pevaluator.TaskEvaluator([])
-    ev.synchronize_between_processes()           # one process: no-op
-    monkeypatch.setattr(dist, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ev.synchronize_between_processes()
+    coco_json, batches = _evaluator_case()
+    per_rank = [[(ids, scores, boxes,
+                  [[pevaluator.rle_ops.encode(m) for m in row]
+                   for row in masks], valid)]
+                for ids, scores, boxes, masks, valid in batches]
+    ranks = Ranks("eval_merge", tmp_path, {
+        "gts": pevaluator.gt_records_from_json(coco_json),
+        "batches": per_rank}, timeout=120)
+    want = _evaluate(jevaluator, coco_json, batches)
+    one = pevaluator.TaskEvaluator([])
+    one.synchronize_between_processes()          # one process: no-op
+    results = ranks.wait()
+    n_records = {r["records"] for r in results}
+    assert len(n_records) == 1
+    for r in results:
+        assert set(r["stats"]) == {"bbox", "segm"}
+        for k, v in want.items():
+            np.testing.assert_array_equal(r["stats"][k], v, err_msg=k)
 
 
 # -- evaluate: both packages' loops ----------------------------------------

@@ -312,8 +312,25 @@ def _seeded_detections(seed, n_img=6):
 
 
 @pytest.mark.parametrize("copy", ["coco_eval", "evaluator", "tensorboard",
-                                  "jsonl_logger"])
+                                  "jsonl_logger", "meter_merge"])
 def test_eval_and_logging_copies_match(tmp_path, monkeypatch, copy):
+    if copy == "meter_merge":
+        # The cross-host merge of the meters (its transport, a gather over
+        # processes, is tests/test_torch_multiprocess.py's).
+        states = [{"loss": (3.0, 2), "iter_time": (0.5, 2)},
+                  {"loss": (1.0, 1), "grad_norm": (2.0, 1)}]
+        assert plogging.merge_meter_states(states) == \
+            jlogging.merge_meter_states(states)
+        summaries = []
+        for mod in (jlogging, plogging):
+            logger = mod.MetricLogger()
+            logger.update(loss=2.0, grad_norm=0.5)
+            logger.load_meter_state(mod.merge_meter_states(
+                [logger.meter_state()] + states))
+            logger.synchronize_between_processes()    # one process: no-op
+            summaries.append(logger.summary())
+        assert summaries[0] == summaries[1]
+        return
     if copy in ("coco_eval", "evaluator"):
         coco, ids, scores, boxes = _seeded_detections(11)
         out = []

@@ -339,9 +339,37 @@ def test_ema_update_and_moment_dtype():
     et = _t(e.copy())
     poptim.ema_update([et], [_t(p)], 0.9998)
     np.testing.assert_allclose(et.numpy(), np.asarray(want), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="moment"):
-        poptim.make_optimizer({"model": [et]},
-                              pconfig.OptimConfig(moment_dtype="bfloat16"))
+
+    # optim.moment_dtype="bfloat16": JAX's make_optimizer (clip, then optax
+    # adamw with mu_dtype bf16) against the port's clip and AdamW over 3
+    # steps. The first moment is bf16 on both sides and equal bit for bit;
+    # the second stays f32.
+    p0 = rng.normal(size=(6, 5)).astype(np.float32)
+    grads = [rng.normal(size=(6, 5)).astype(np.float32) * 0.05
+             for _ in range(3)]
+    tx = joptim.make_optimizer(OptimConfig(moment_dtype="bfloat16"), 10, 100)
+    pj = {"decoder": {"w": jnp.asarray(p0)}}
+    jstate = tx.init(pj)
+    cfg = pconfig.OptimConfig(moment_dtype="bfloat16")
+    pt = _t(p0.copy())
+    opt = poptim.make_optimizer({"model": [pt]}, cfg)
+    lr = poptim.make_schedules(cfg, 10, 100)["model"]
+    for i, g in enumerate(grads):
+        upd, jstate = tx.update({"decoder": {"w": jnp.asarray(g)}}, jstate,
+                                pj)
+        pj = optax.apply_updates(pj, upd)
+        pt.grad = _t(g)
+        torch.nn.utils.clip_grad_norm_([pt], cfg.clip_max_norm)
+        opt.param_groups[0]["lr"] = lr(i)
+        opt.step()
+        np.testing.assert_allclose(pt.numpy(), np.asarray(pj["decoder"]["w"]),
+                                   rtol=1e-6, atol=1e-7, err_msg=i)
+    [jmu] = [x for x in jax.tree_util.tree_leaves(jstate)
+             if x.dtype == jnp.bfloat16]
+    mu, nu = opt.state[pt]["exp_avg"], opt.state[pt]["exp_avg_sq"]
+    assert (mu.dtype, nu.dtype) == (torch.bfloat16, torch.float32)
+    np.testing.assert_array_equal(mu.float().numpy(),
+                                  np.asarray(jmu.astype(jnp.float32)))
 
 
 def _zero_by_construction(name):

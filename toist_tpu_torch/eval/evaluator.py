@@ -8,10 +8,11 @@ The reference gathers pickled pycocotools evalImgs across ranks
 (coco_eval.py:322-341); here each host contributes fixed-shape prediction arrays and
 the merge is a simple list concatenation keyed by image id.
 
-The port's own copy of ``toist_tpu/eval/evaluator.py``, line for line but for one
-method: ``synchronize_between_processes`` returns with one process and raises
-with more (the JAX package's gather is ``jax.experimental.multihost_utils``; the
-port's ``torch.distributed`` gather is ROADMAP queue A item 7).
+The port's own copy of ``toist_tpu/eval/evaluator.py``, line for line but for the
+transport of one method: ``synchronize_between_processes`` gathers the pickled
+records with ``torch.distributed`` (``utils/dist.all_gather_object``) where the JAX
+package uses ``jax.experimental.multihost_utils``; the per-image-ownership merge is
+the same.
 """
 from __future__ import annotations
 
@@ -96,12 +97,21 @@ class TaskEvaluator:
 
     def synchronize_between_processes(self) -> None:
         """Merge detection records across hosts (no-op single-host)."""
-        from toist_tpu_torch.utils.dist import process_count
-        if process_count() == 1:
+        from toist_tpu_torch.utils import dist
+        if dist.process_count() == 1:
             return
-        raise NotImplementedError(
-            "TaskEvaluator across processes: the torch.distributed gather of "
-            "detection records is ROADMAP queue A item 7")
+        gathered = dist.all_gather_object(self.dt_records)
+        # Per-image ownership: every image is scored by exactly one host (the
+        # lowest-indexed one that produced records for it). The data sharding
+        # already assigns each image to one host; ownership here only guards
+        # against batch-pad duplicates, and — unlike a per-record dedup key —
+        # can never drop two distinct detections that happen to coincide.
+        merged, owner = [], {}
+        for i, recs in enumerate(gathered):
+            for r in recs:
+                if owner.setdefault(r["image_id"], i) == i:
+                    merged.append(r)
+        self.dt_records = merged
 
     def summarize(self) -> Dict[str, np.ndarray]:
         """Returns {'bbox': stats12, 'segm': stats12?}; stats[1] = AP@0.5."""

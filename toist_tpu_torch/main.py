@@ -24,12 +24,18 @@ scores bbox and segm, and the logs gain the mask AP@0.5.
 Run:  python -m toist_tpu_torch.main --config configs/fixture.json \\
           [--eval] [--resume P] [--load P] [--output-dir D] [--set k=v ...]
           [--device cpu]
+      torchrun --nproc_per_node N -m toist_tpu_torch.main ...
 
 The model runs on the card (``--device cuda``, the default) unless the
-caller asks for another device. Modes of the JAX ``main`` that this port
-does not run yet (more than one device, ``run.profile_dir``, the
-pretrained converters) raise ``NotImplementedError`` naming their ROADMAP
-item.
+caller asks for another device. Under torchrun each rank takes its own
+card and its own slice of every batch (the config's batch sizes are per
+rank, the reference's per-GPU batches, ``toist_tpu/main.py:160-186``): the
+losses and gradients are the global batch's, ZeRO-1 shards the optimizer
+state with ``run.shard_opt_state``, the eval is host-sharded and merged,
+and rank 0 alone writes ``log.jsonl``, TensorBoard and the checkpoints.
+Modes of the JAX ``main`` that this port does not run yet (a 'model' mesh
+axis, ``run.profile_dir``, the pretrained converters) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from toist_tpu_torch.data.cocotasks import TASKS, build_task_dataset
 from toist_tpu_torch.eval.evaluator import mean_ap50
 from toist_tpu_torch.models.init import init_like_jax
 from toist_tpu_torch.models.toist import TOIST
+from toist_tpu_torch.parallel import data as dp
 from toist_tpu_torch.train import checkpoint as ckpt
 from toist_tpu_torch.train import engine
 from toist_tpu_torch.train.cluster import init_bank
@@ -59,7 +66,7 @@ from toist_tpu_torch.train.distill import (make_cluster_eval_step,
                                            make_distillation_train_step)
 from toist_tpu_torch.train.state import init_train_state, load_masters
 from toist_tpu_torch.train.step import make_eval_step, make_train_step
-from toist_tpu_torch.utils.dist import process_count
+from toist_tpu_torch.utils import dist
 from toist_tpu_torch.utils.logging import JsonlLogger
 from toist_tpu_torch.utils.tensorboard import SummaryWriter
 
@@ -91,11 +98,8 @@ def build_specs(cfg: Config):
 
 def check_ported(cfg: Config) -> None:
     """Raise on a configuration that the JAX ``main`` runs and the port
-    does not run yet."""
+    does not run yet (a 'model' mesh axis raises in ``dp.make_mesh``)."""
     unported = [
-        (process_count() > 1
-         or any(n not in (-1, 1) for n in cfg.run.mesh_shape),
-         "more than one device", 7),
         (bool(cfg.run.profile_dir), "run.profile_dir (torch.profiler)", 8),
         (bool(cfg.run.pretrained_backbone), "run.pretrained_backbone", 10),
         (bool(cfg.run.pretrained_text), "run.pretrained_text", 10)]
@@ -119,8 +123,19 @@ def git_sha() -> str:
 
 
 def main(cfg: Config, device="cuda") -> Optional[float]:
+    """Run ``cfg``; under torchrun, as one rank of the group it sets up
+    (``utils/dist.init_distributed``) and leaves at the end."""
+    own_group = not dist.initialized()
+    try:
+        return _main(cfg, dist.init_distributed(device))
+    finally:
+        if own_group:
+            dist.destroy()
+
+
+def _main(cfg: Config, device: torch.device) -> Optional[float]:
     check_ported(cfg)
-    device = torch.device(device)
+    dp.make_mesh(cfg.run.mesh_shape, cfg.run.mesh_axes)
     print(f"toist_tpu_torch git sha: {git_sha()}", flush=True)
     tokenizer = build_tokenizer(cfg)
     train_spec, eval_spec = build_specs(cfg)
@@ -143,13 +158,16 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
     if train_sets:
         # With gradient accumulation the step consumes accum * B samples and
         # applies one optimizer update, so the iterator batches (and hence
-        # steps_per_epoch / the LR schedules) scale accordingly.
+        # steps_per_epoch / the LR schedules) scale accordingly. Each rank
+        # takes its shard (the reference's DistributedSampler, main.py:409);
+        # len() is the same on every rank, and so are the schedules.
         train_iter = BatchIterator(
             train_sets, train_spec,
             batch_size=(cfg.optim.train_batch_size
                         * cfg.optim.grad_accum_steps),
-            seed=cfg.run.seed, shuffle=True, paired=cfg.loss.distillation,
-            num_workers=cfg.data.num_workers,
+            seed=cfg.run.seed, shuffle=True,
+            shard_id=dist.process_index(), num_shards=dist.process_count(),
+            paired=cfg.loss.distillation, num_workers=cfg.data.num_workers,
             worker_mode=cfg.data.worker_mode)
         steps_per_epoch = max(1, len(train_iter))
     elif cfg.run.eval_only:
@@ -201,6 +219,7 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
         if teacher is not None:
             load_masters(state, tweights, teacher=True)
         del weights, tweights
+    dp.replicate(state)
 
     # The EMA is evaluated in a second model in the compute dtype, loaded
     # from the EMA before each eval; state.model keeps the trained weights.
@@ -218,6 +237,7 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
     def run_eval(epoch: int = 0) -> float:
         if eval_model is not state.model:
             eval_model.load_state_dict(ckpt.full_state_dict(state, ema=True))
+        # Per rank: the eval is host-sharded (toist_tpu/main.py:313-319).
         results = engine.evaluate(
             eval_step, val_sets, eval_spec,
             batch_size=cfg.optim.valid_batch_size,

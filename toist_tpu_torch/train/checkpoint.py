@@ -20,6 +20,13 @@ load_reference_checkpoint`` of either package reads it. A file is written
 under a temporary name and renamed into place, so a cut run never leaves
 half a file. The three load modes map to ``restore`` (--resume),
 ``load_params`` (--load warm start, EMA preferred) and ``merge_params``.
+
+Across ranks every rank calls ``save``, as JAX's ``main`` does
+(``toist_tpu/main.py:358-372``): a ZeRO-1 optimizer's shards are gathered
+(``parallel/data.zero1_state_dict``), and rank 0 alone writes the same
+file, with the full ``optimizer``. ``restore`` gives every rank the same state, and a
+ZeRO-1 optimizer keeps its rank's share of the moments: a checkpoint
+crosses between any numbers of ranks.
 """
 from __future__ import annotations
 
@@ -33,10 +40,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from toist_tpu_torch.config import Config
+from toist_tpu_torch.parallel import data as dp
 from toist_tpu_torch.train.cluster import ClusterBank
 from toist_tpu_torch.train.state import (TrainState, init_train_state,
                                          load_masters, model_masters)
 from toist_tpu_torch.utils.convert import load_reference_checkpoint
+from toist_tpu_torch.utils.dist import process_index
 
 # One record per finished write: path, bytes, copy_s (device -> host, on the
 # caller's thread), write_s (torch.save + rename).
@@ -64,9 +73,8 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def _host_payload(state: TrainState, epoch: int,
-                  args: Optional[dict]) -> Dict[str, Any]:
-    opt = state.optimizer.state_dict()
+def _host_payload(state: TrainState, epoch: int, args: Optional[dict],
+                  opt: Dict[str, Any]) -> Dict[str, Any]:
     payload = {
         "model": {k: _host(v) for k, v in full_state_dict(state).items()},
         "optimizer": {
@@ -102,14 +110,20 @@ def _write(path: str, payload: Dict[str, Any], copy_s: float) -> None:
 
 def save(path: str, state: TrainState, epoch: int,
          async_save: bool = False, args: Optional[dict] = None) -> None:
-    """Full training save. The tensors are copied to the host on the
-    caller's thread (so the device memory and the next steps' in-place
-    updates are free at once); with ``async_save`` the write runs on one
-    background thread, and a later save first waits for it."""
+    """Full training save, called by every rank; rank 0 writes. The
+    tensors are copied to the host on the caller's thread (so the device
+    memory and the next steps' in-place updates are free at once); with
+    ``async_save`` the write runs on one background thread, and a later
+    save first waits for it."""
     global _WRITER, _PENDING
+    opt = (dp.zero1_state_dict(state.optimizer)
+           if hasattr(state.optimizer, "optim")                # ZeRO-1
+           else state.optimizer.state_dict())
+    if process_index() != 0:
+        return
     wait_for_async_saves()
     t0 = time.perf_counter()
-    payload = _host_payload(state, epoch, args)
+    payload = _host_payload(state, epoch, args, opt)
     copy_s = time.perf_counter() - t0
     if not async_save:
         _write(path, payload, copy_s)
@@ -139,7 +153,8 @@ def restore(path: str, cfg: Config, steps_per_epoch: int, total_steps: int,
     compute dtype (the masters cast down), the f32 masters, the AdamW
     moments and step counts, the EMA and the step, with the schedules
     rebuilt from ``cfg``; in distillation also the teacher, its EMA and the
-    cluster bank. Returns (state, epoch)."""
+    cluster bank. A ZeRO-1 optimizer takes its rank's share of the moments.
+    Returns (state, epoch)."""
     from toist_tpu_torch.models.toist import TOIST
 
     payload = _load(path)

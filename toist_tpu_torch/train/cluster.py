@@ -22,15 +22,24 @@ JAX's ``lax.cond`` becomes ``torch.where`` over both branches, and a task
 index stays a device tensor. A padding row's task index is -1 (task id 0):
 its reads wrap to the last task, as JAX's indexing does, and its writes are
 masked off.
+
+Across ranks (``across_ranks``, the train steps) the bank is one global
+object, as JAX's is: each rank all-gathers the pooled features, task ids
+and valid flags of its rows, and every rank pushes and clusters the global
+batch's rows in rank order (the global batch order of
+``make_array_from_process_local_data``, which ``toist_tpu/train/cluster.py:
+81-115`` scans), so every rank ends the step with the same bank. Each rank
+snaps its own rows.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from toist_tpu_torch.ops.kmeans import kmeans, kmeans_predict
+from toist_tpu_torch.utils import dist
 
 
 @dataclasses.dataclass
@@ -78,6 +87,28 @@ def pool_span_features(text_memory: torch.Tensor, spans: torch.Tensor,
     pooled = (per_box * ok[..., None]).sum(1) \
         / torch.clamp(n_ok, min=1)[..., None]
     return pooled, n_ok > 0
+
+
+def caption_span_mask(batch: Mapping[str, torch.Tensor],
+                      T: int) -> torch.Tensor:
+    """The caption's "something" span (``caption_noun_span``) as a mask
+    [B, T] over the text tokens."""
+    return span_box_masks(batch["caption_noun_span"][:, None, :], T)[:, 0]
+
+
+def _global_rows(pooled: torch.Tensor, task_idx: torch.Tensor,
+                 valid: torch.Tensor, across_ranks: bool):
+    """(pooled, task_idx, valid) of the global batch, all-gathered in rank
+    order in one f32 collective, and the slice of this rank's rows."""
+    if not across_ranks or not dist.initialized():
+        return pooled, task_idx, valid, slice(None)
+    B = pooled.shape[0]
+    rows = torch.cat([pooled.float(), task_idx[:, None].float(),
+                      valid[:, None].float()], 1)
+    g = dist.all_gather_rows(rows)
+    r = dist.process_index()
+    return (g[:, :-2], g[:, -2].long(), g[:, -1] > 0,
+            slice(r * B, (r + 1) * B))
 
 
 @torch.no_grad()
@@ -159,11 +190,12 @@ def teacher_update_and_snap(bank: ClusterBank,
                             cache: Mapping[str, torch.Tensor],
                             batch: Mapping[str, torch.Tensor],
                             max_iters: int = 32, tol: float = 1e-4,
-                            fifo: bool = False
+                            fifo: bool = False, across_ranks: bool = False
                             ) -> Tuple[ClusterBank, torch.Tensor, Dict]:
     """Teacher path (update_memory, mdetr.py:105-211): pool the noun spans,
     push them into the bank, snap the noun positions to their k-means
-    center. Returns (bank, img_memory_mod, aux)."""
+    center. Returns (bank, img_memory_mod, aux); with ``across_ranks`` the
+    bank takes the global batch's rows."""
     tm = cache["text_memory"].float()
     spans = batch["noun_token_spans"]
     bv = batch["box_valid"] & batch["sample_valid"][:, None]
@@ -171,9 +203,12 @@ def teacher_update_and_snap(bank: ClusterBank,
     pooled = pooled.detach()
     task0 = batch["task_id"].long() - 1
     valid = has_any & batch["sample_valid"]
-    bank = update_bank(bank, pooled, task0, valid, fifo=fifo)
-    bank, center_feats, choices = cluster_select(bank, pooled, task0, valid,
-                                                 max_iters, tol)
+    g_pooled, g_task0, g_valid, own = _global_rows(pooled, task0, valid,
+                                                   across_ranks)
+    bank = update_bank(bank, g_pooled, g_task0, g_valid, fifo=fifo)
+    bank, center_feats, choices = cluster_select(bank, g_pooled, g_task0,
+                                                 g_valid, max_iters, tol)
+    center_feats, choices = center_feats[own], choices[own]
     T = tm.shape[1]
     union = (span_box_masks(spans, T) & bv[..., None]).any(1)
     mod = snap_text_memory(cache["img_memory"], T, union, center_feats,
@@ -183,29 +218,38 @@ def teacher_update_and_snap(bank: ClusterBank,
 
 def student_cluster(bank: ClusterBank, cache: Mapping[str, torch.Tensor],
                     batch: Mapping[str, torch.Tensor], max_iters: int = 32,
-                    tol: float = 1e-4, train: bool = True
+                    tol: float = 1e-4, train: bool = True,
+                    num_valid: Optional[torch.Tensor] = None,
+                    across_ranks: bool = False
                     ) -> Tuple[ClusterBank, torch.Tensor, Dict]:
     """Student path (forward mdetr.py:236-280 / infer_choice :282-312):
     pool the caption's "something" span (``caption_noun_span``, so an image
     without boxes is snapped too), snap it to its k-means center; in
     training also the MSE of the pooled feature to its center, whose
-    gradient reaches the student through the pooled feature only."""
+    gradient reaches the student through the pooled feature only, averaged
+    over the samples with a span (``num_valid`` of them, by default the
+    batch's). With ``across_ranks`` the k-means runs over the global
+    batch's rows."""
     tm = cache["text_memory"].float()
     T = tm.shape[1]
-    m = span_box_masks(batch["caption_noun_span"][:, None, :], T)[:, 0, :]
+    m = caption_span_mask(batch, T)
     cnt = m.sum(-1)
     pooled = torch.einsum("bt,btd->bd", m.to(tm.dtype), tm) \
         / torch.clamp(cnt, min=1)[..., None]
     valid = (cnt > 0) & batch["sample_valid"]
     task0 = batch["task_id"].long() - 1
+    g_pooled, g_task0, g_valid, own = _global_rows(pooled.detach(), task0,
+                                                   valid, across_ranks)
     bank, center_feats, choices = cluster_select(
-        bank, pooled.detach(), task0, valid, max_iters, tol)
+        bank, g_pooled, g_task0, g_valid, max_iters, tol)
+    center_feats, choices = center_feats[own], choices[own]
     mod = snap_text_memory(cache["img_memory"], T, m, center_feats, valid)
     aux = {"choices": choices, "valid": valid}
     if train:
         # MSE(pooled, chosen center), averaged over samples (:269-278).
         per = ((pooled - center_feats) ** 2).mean(-1)
-        denom = torch.clamp(valid.sum(), min=1)
-        aux["loss_cluster_feature"] = (per * valid).sum() / denom
+        if num_valid is None:
+            num_valid = torch.clamp(valid.sum(), min=1)
+        aux["loss_cluster_feature"] = (per * valid).sum() / num_valid
         aux["loss_cluster_choice"] = torch.zeros((), device=tm.device)
     return bank, mod, aux

@@ -14,6 +14,15 @@ matched and on re-paired false-positive queries) and nsthl2 (the student's
 pooled "something" feature pulled to the teacher's pooled noun feature).
 Segmentation adds the sigmoid focal and dice losses on the matched queries'
 stride-4 masks (``mask_losses``).
+
+Every denominator is a count over the batch (valid boxes, valid samples,
+samples with a valid box), and JAX takes it over the global batch. The
+train step computes them once per (micro)batch over all ranks
+(``normaliser_counts``, ``train/step.accumulate_gradients``) and passes them
+in the batch as ``num_boxes_override``, ``num_samples_override`` and
+``num_with_boxes_override``; each rank's losses are then its own sums over
+the global denominators, and their sum over the ranks is the global loss.
+Without them a loss takes the count of the batch it is given.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ from toist_tpu_torch.ops import box_ops
 from toist_tpu_torch.ops.lsa import solve_lsa_batch
 from toist_tpu_torch.ops.matching import (hungarian_match_levels,
                                           query_is_matched)
-from toist_tpu_torch.train.cluster import pool_span_features
+from toist_tpu_torch.train.cluster import (caption_span_mask,
+                                           pool_span_features)
 
 
 def _gather_queries(arr: torch.Tensor, tgt2query: torch.Tensor
@@ -81,13 +91,17 @@ def loss_boxes(pred_boxes: torch.Tensor, tgt_boxes: torch.Tensor,
 
 @torch.no_grad()
 def loss_cardinality(pred_logits: torch.Tensor, box_valid: torch.Tensor,
-                     sample_valid: torch.Tensor) -> torch.Tensor:
+                     sample_valid: torch.Tensor,
+                     num_samples: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Logging only: |predicted non-empty queries - targets|, mean over the
-    valid images."""
+    valid images (``num_samples`` of them, by default the batch's)."""
     card_pred = (pred_logits.argmax(-1) != pred_logits.shape[-1] - 1).sum(1)
     err = (card_pred.float() - box_valid.sum(1).float()).abs()
     sv = sample_valid.float()
-    return (err * sv).sum() / sv.sum().clamp(min=1.0)
+    if num_samples is None:
+        num_samples = sv.sum().clamp(min=1.0)
+    return (err * sv).sum() / num_samples
 
 
 def loss_contrastive_align(proj_queries: torch.Tensor,
@@ -130,6 +144,21 @@ def compute_num_boxes(box_valid: torch.Tensor,
                       sample_valid: torch.Tensor) -> torch.Tensor:
     n = (box_valid & sample_valid[:, None]).sum()
     return n.float().clamp(min=1.0)
+
+
+def normaliser_counts(batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """[valid boxes, valid samples, valid samples with a valid box, valid
+    samples with a caption span] of one stream's batch, f32 [4]: the
+    unclamped counts under every denominator of the losses (the last one
+    the cluster feature loss's, ``train/cluster.student_cluster``)."""
+    sv = batch["sample_valid"]
+    bv = batch["box_valid"] & sv[:, None]
+    span = sv
+    if "caption_noun_span" in batch:
+        span = caption_span_mask(batch, batch["text_ids"].shape[1]).any(-1) \
+            & sv
+    return torch.stack([bv.sum(), sv.sum(), (bv.any(-1) & sv).sum(),
+                        span.sum()]).float()
 
 
 # The focal loss's class balance and focusing exponent (the reference's
@@ -193,8 +222,10 @@ def set_criterion(outputs: Mapping[str, torch.Tensor],
     under "_tgt2query" (main) and "_tgt2query_{i}" (aux level i). A
     distillation stream's ``prefix`` ("noun_", "sth_") goes before each
     loss key, and its matchings are "_{prefix}tgt2query{suffix}".
-    ``batch["num_boxes_override"]``, when present, replaces the batch's
-    valid-box count (gradient accumulation passes global / accum).
+    ``batch["num_boxes_override"]`` and ``batch["num_samples_override"]``,
+    when present, replace the batch's valid-box and valid-sample counts
+    (the train step passes the global batch's, the box count / accum under
+    gradient accumulation).
     ``matching`` ([L, B, N], aux levels then main, as
     ``hungarian_match_levels`` returns it) replaces the solve: it holds the
     losses of two runs to one matching where near-tied costs could flip
@@ -230,7 +261,7 @@ def set_criterion(outputs: Mapping[str, torch.Tensor],
          losses[f"{prefix}loss_giou{suffix}"]) = loss_boxes(
              pboxes, boxes, t2q, bv, num_boxes)
         losses[f"{prefix}cardinality_error{suffix}"] = loss_cardinality(
-            logits, bv, sv)
+            logits, bv, sv, batch.get("num_samples_override"))
         if proj_q is not None:
             losses[f"{prefix}loss_contrastive_align{suffix}"] = \
                 loss_contrastive_align(
@@ -321,23 +352,32 @@ def _softkd_per_image(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
     return (tp_kl.sum(-1) + fp_kl.sum(-1)) / Q
 
 
+def _num_samples(sample_valid: torch.Tensor,
+                 num_samples: Optional[torch.Tensor]) -> torch.Tensor:
+    return (sample_valid.sum().clamp(min=1) if num_samples is None
+            else num_samples)
+
+
 def loss_softkd(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
                 noun_boxes: torch.Tensor, sth_boxes: torch.Tensor,
                 t2q_noun: torch.Tensor, t2q_sth: torch.Tensor,
-                box_valid: torch.Tensor, sample_valid: torch.Tensor
-                ) -> torch.Tensor:
-    """Softkd of one decoder level: the mean over valid images."""
+                box_valid: torch.Tensor, sample_valid: torch.Tensor,
+                num_samples: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softkd of one decoder level: the mean over valid images
+    (``num_samples`` of them, by default the batch's)."""
     per_image = _softkd_per_image(noun_logits, sth_logits, noun_boxes,
                                   sth_boxes, t2q_noun, t2q_sth, box_valid,
                                   sample_valid)
-    return (per_image * sample_valid).sum() / sample_valid.sum().clamp(min=1)
+    return (per_image * sample_valid).sum() / _num_samples(sample_valid,
+                                                            num_samples)
 
 
 def loss_softkd_levels(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
                        noun_boxes: torch.Tensor, sth_boxes: torch.Tensor,
                        t2q_noun: torch.Tensor, t2q_sth: torch.Tensor,
-                       box_valid: torch.Tensor,
-                       sample_valid: torch.Tensor) -> torch.Tensor:
+                       box_valid: torch.Tensor, sample_valid: torch.Tensor,
+                       num_samples: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Softkd of all decoder levels in ONE re-pairing solve: inputs stacked
     [L, B, ...] (aux levels, then main), box_valid / sample_valid shared
     [B, ...] -> [L] per-level losses."""
@@ -354,16 +394,19 @@ def loss_softkd_levels(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
         flat(sth_boxes), flat(t2q_noun), flat(t2q_sth), tile(box_valid),
         tile(sample_valid)).reshape(L, B)
     return (per_image * sample_valid[None, :]).sum(-1) \
-        / sample_valid.sum().clamp(min=1)
+        / _num_samples(sample_valid, num_samples)
 
 
 def loss_nsthl2(noun_text_memory: torch.Tensor,
                 sth_text_memory: torch.Tensor, noun_spans: torch.Tensor,
                 sth_spans: torch.Tensor, box_valid: torch.Tensor,
-                sample_valid: torch.Tensor) -> torch.Tensor:
+                sample_valid: torch.Tensor,
+                num_with_boxes: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """L2 text-feature distillation (reference mdetr.py:668-781): the MSE
     between the student's pooled "something" feature and the teacher's
-    pooled noun feature (detached), averaged over the images with boxes."""
+    pooled noun feature (detached), averaged over the images with boxes
+    (``num_with_boxes`` of them, by default the batch's)."""
     bv = box_valid & sample_valid[:, None]
     pooled_noun, _ = pool_span_features(noun_text_memory.float(), noun_spans,
                                         bv)
@@ -371,7 +414,9 @@ def loss_nsthl2(noun_text_memory: torch.Tensor,
                                        bv)
     ok = (bv.sum(-1) > 0) & sample_valid
     mse = ((pooled_sth - pooled_noun.detach()) ** 2).mean(-1)
-    return (mse * ok).sum() / ok.sum().clamp(min=1)
+    if num_with_boxes is None:
+        num_with_boxes = ok.sum().clamp(min=1)
+    return (mse * ok).sum() / num_with_boxes
 
 
 def build_weight_dict(cfg: LossConfig, masks: bool,

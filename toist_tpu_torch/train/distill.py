@@ -8,7 +8,10 @@ captions) forward with the "something"-span snapping and the cluster loss,
 each stream's set losses (noun_ / sth_ prefixes), softkd (main and aux
 levels in one re-pairing solve) and nsthl2; one backward over both models,
 one clip by the global norm over both, one AdamW, the masters copied into
-both models, the dual EMA. The bank changes under no gradient.
+both models, the dual EMA. The bank changes under no gradient. Across
+ranks, as the plain step (``train/step.py``): global denominators, one
+reduction of both models' gradients, and the bank fed the global batch's
+rows in rank order on every rank.
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ def distillation_losses(state: TrainState,
         state.cluster_bank, tcache["img_memory_mod"], _ = \
             cl.teacher_update_and_snap(
                 state.cluster_bank, tcache, noun_b, lcfg.kmeans_max_iters,
-                lcfg.kmeans_tol, lcfg.fifo_memory)
+                lcfg.kmeans_tol, lcfg.fifo_memory, across_ranks=True)
     tout = teacher.decode(tcache, use_modified_memory=lcfg.cluster,
                           generator=r2)
 
@@ -63,7 +66,9 @@ def distillation_losses(state: TrainState,
         state.cluster_bank, scache["img_memory_mod"], saux = \
             cl.student_cluster(state.cluster_bank, scache, sth_b,
                                lcfg.kmeans_max_iters, lcfg.kmeans_tol,
-                               train=True)
+                               train=True,
+                               num_valid=sth_b.get("num_with_span_override"),
+                               across_ranks=True)
         losses["loss_cluster_feature"] = saux["loss_cluster_feature"]
         losses["loss_cluster_choice"] = saux["loss_cluster_choice"]
     sout = student.decode(scache, use_modified_memory=lcfg.cluster,
@@ -72,6 +77,7 @@ def distillation_losses(state: TrainState,
     losses.update(crit.set_criterion(tout, noun_b, lcfg, prefix="noun_"))
     losses.update(crit.set_criterion(sout, sth_b, lcfg, prefix="sth_"))
     bv, sv = sth_b["box_valid"], sth_b["sample_valid"]
+    num_samples = sth_b.get("num_samples_override")
     if lcfg.softkd_loss:
         if lcfg.aux_loss and "aux_pred_logits" in tout:
             # Levels aux 0..n-1, then main, in one re-pairing solve.
@@ -88,7 +94,7 @@ def distillation_losses(state: TrainState,
             kd = crit.loss_softkd_levels(
                 cat(tout, "pred_logits"), cat(sout, "pred_logits"),
                 cat(tout, "pred_boxes"), cat(sout, "pred_boxes"),
-                t2q("noun"), t2q("sth"), bv, sv)
+                t2q("noun"), t2q("sth"), bv, sv, num_samples)
             losses["loss_softkd"] = kd[-1]
             for i in range(n_aux):
                 losses[f"loss_softkd_{i}"] = kd[i]
@@ -96,11 +102,13 @@ def distillation_losses(state: TrainState,
             losses["loss_softkd"] = crit.loss_softkd(
                 tout["pred_logits"], sout["pred_logits"],
                 tout["pred_boxes"], sout["pred_boxes"],
-                losses["_noun_tgt2query"], losses["_sth_tgt2query"], bv, sv)
+                losses["_noun_tgt2query"], losses["_sth_tgt2query"], bv, sv,
+                num_samples)
     if lcfg.nsthl2_loss:
         losses["loss_nsthl2"] = crit.loss_nsthl2(
             tcache["text_memory"], scache["text_memory"],
-            noun_b["noun_token_spans"], sth_b["noun_token_spans"], bv, sv)
+            noun_b["noun_token_spans"], sth_b["noun_token_spans"], bv, sv,
+            sth_b.get("num_with_boxes_override"))
     total = crit.total_loss(losses, weight_dict)
     losses["loss"] = total
     return total, losses

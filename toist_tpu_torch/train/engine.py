@@ -11,11 +11,18 @@ sinks, a distillation step's per-task bank counts with them (engine.py:
 mean AP@0.5 over the tasks (engine.py:253-342, main.py:581-590), with
 iou_types "segm" also the masks through the device postprocess
 (``models/postprocess.start_masks_device`` / ``finish_masks_device``).
+
+Across ranks: ``train_one_epoch`` runs the same number of steps on every
+rank (each step's collectives need every rank), padding a shard that runs
+out with all-invalid copies of its last batch, and merges the meters at
+the epoch's end (``toist_tpu/train/engine.py:69``); ``evaluate`` is
+host-sharded as JAX's is (``:105-127``): each rank evaluates its slice of
+the val set and the evaluators merge their records.
 """
 from __future__ import annotations
 
 import sys
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +32,7 @@ from toist_tpu_torch.eval.evaluator import (TaskEvaluator,
                                             gt_records_from_json, mean_ap50)
 from toist_tpu_torch.models.postprocess import (finish_masks_device,
                                                 start_masks_device)
+from toist_tpu_torch.utils import dist
 from toist_tpu_torch.utils.logging import JsonlLogger, MetricLogger
 from toist_tpu_torch.utils.transfer import finish_to_host, start_to_host
 from toist_tpu_torch.train.state import TrainState
@@ -32,6 +40,41 @@ from toist_tpu_torch.train.step import train_batch_to_device
 
 LOGGED = ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm",
           "loss_contrastive_align")
+
+
+def _all_invalid(batch):
+    """``batch`` (or each stream of a distillation pair) with every sample
+    and box marked invalid: it adds nothing to the losses, their
+    denominators, the gradients or the cluster bank."""
+    if "noun" in batch:
+        return {k: _all_invalid(b) for k, b in batch.items()}
+    return dict(batch, sample_valid=np.zeros_like(batch["sample_valid"]),
+                box_valid=np.zeros_like(batch["box_valid"]))
+
+
+def equal_steps(batches: Iterable) -> Iterator:
+    """This rank's ``batches``, and then all-invalid copies of its last one
+    until every rank's are done: shards of one epoch can yield different
+    batch counts (``BatchIterator`` groups samples by canvas and flushes
+    each canvas's remainder), and a rank that stopped early would leave the
+    others waiting in a collective. The ranks agree on the host before each
+    step."""
+    it = iter(batches)
+    if dist.process_count() == 1:
+        yield from it
+        return
+    last = None
+    while True:
+        batch = next(it, None)
+        if not dist.host_max(int(batch is not None)):
+            return
+        if batch is None:
+            if last is None:
+                raise RuntimeError(f"rank {dist.process_index()} has no "
+                                   "batch in an epoch where others have")
+            batch = _all_invalid(last)
+        last = batch
+        yield batch
 
 
 def train_one_epoch(train_step: Callable, state: TrainState,
@@ -45,8 +88,8 @@ def train_one_epoch(train_step: Callable, state: TrainState,
     logger = MetricLogger(print_freq=print_freq, header=f"Epoch [{epoch}]")
     device = state.masters[0][1].device
     n_batches = len(batch_iter)
-    for i, batch in enumerate(logger.log_every(batch_iter.epoch(epoch),
-                                               total=n_batches)):
+    for i, batch in enumerate(logger.log_every(
+            equal_steps(batch_iter.epoch(epoch)), total=n_batches)):
         state, scalars = train_step(state,
                                     train_batch_to_device(batch, device))
         if i % print_freq == 0 or i == n_batches - 1:
@@ -75,6 +118,8 @@ def train_one_epoch(train_step: Callable, state: TrainState,
                     for j, v in enumerate(vecs.get(name, [])):
                         row[f"{tag}_{j + 1}"] = v
                 tb.add_scalars(row, step=int(state.step))
+    # Global (cross-host) epoch stats, incl. iter_time/data_time.
+    logger.synchronize_between_processes()
     return state, logger.summary()
 
 
@@ -98,7 +143,11 @@ def evaluate(eval_step: Callable, task_datasets: Dict[int, object],
     for task_id, ds in task_datasets.items():
         gts = gt_records_from_json(ds.coco.dataset)
         evaluator = TaskEvaluator(gts, iou_types=iou_types)
-        it = BatchIterator([ds], spec, batch_size=batch_size, shuffle=False)
+        # Each rank evaluates its slice of the val set (the reference's
+        # DistributedSampler on dataset_val, main.py:439).
+        it = BatchIterator([ds], spec, batch_size=batch_size, shuffle=False,
+                           shard_id=dist.process_index(),
+                           num_shards=dist.process_count())
         logger = MetricLogger(print_freq=print_freq,
                               header=f"Eval task {task_id}:")
 
@@ -130,6 +179,7 @@ def evaluate(eval_step: Callable, task_datasets: Dict[int, object],
             pending = (np_batch, handle, mask_handle)
         if pending is not None:
             _flush(pending)
+        logger.synchronize_between_processes()
         evaluator.synchronize_between_processes()
         results[task_id] = evaluator.summarize()
         ap50 = results[task_id]["bbox"][1]

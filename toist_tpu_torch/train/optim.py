@@ -11,7 +11,11 @@ optax's ``adamw`` and ``torch.optim.AdamW`` compute the same update: eps is
 added to sqrt(v_hat) after bias correction in both (optax's eps_root is 0),
 and both decay decoupled from the gradient, p <- p - lr * wd * p, with the
 step's lr. optax evaluates a schedule at the count of updates done before
-(0 for the first), which is the step the train step passes here.
+(0 for the first), which is the step the train step passes here. The
+port's ``AdamW`` runs ``torch.optim.AdamW``'s update, with its state names,
+and adds ``optim.moment_dtype="bfloat16"``: the first moment is kept in
+bf16 and the second in f32, as optax's ``mu_dtype`` keeps them
+(``toist_tpu/train/optim.py:124-129``).
 """
 from __future__ import annotations
 
@@ -88,22 +92,105 @@ def make_schedules(cfg: OptimConfig, steps_per_epoch: int,
     }
 
 
-def make_optimizer(params: Dict[str, List[torch.Tensor]], cfg: OptimConfig
-                   ) -> torch.optim.AdamW:
+class AdamW(torch.optim.Optimizer):
+    """AdamW with decoupled weight decay, ``torch.optim.AdamW``'s update in
+    ``torch._foreach_*`` ops, state ``step`` / ``exp_avg`` /
+    ``exp_avg_sq`` as that optimizer names and keeps them (so its
+    ``state_dict`` is the reference's ``optimizer``), and the ZeRO-1
+    wrapper can take it.
+
+    ``moment_dtype`` "bfloat16" keeps ``exp_avg`` in bf16, as optax's
+    ``scale_by_adam(mu_dtype=bf16)``: the step's first moment is
+    (1 - b1) * g + b1 * m with b1 and the product b1 * m in bf16, and the
+    update uses that f32 moment before it is stored in bf16. ``exp_avg_sq``
+    stays f32."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 1e-2,
+                 moment_dtype: str = "float32"):
+        if moment_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"moment_dtype {moment_dtype!r}")
+        # Not a group option: a checkpoint's groups replace the optimizer's
+        # on load, and the run's config decides the dtype.
+        self.moment_dtype = getattr(torch, moment_dtype)
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    def __setstate__(self, state):
+        # A checkpoint's groups replace these on load; one written through
+        # the ZeRO-1 wrapper carries only the options given to it.
+        super().__setstate__(state)
+        for group in self.param_groups:
+            for k in ("betas", "eps", "weight_decay"):
+                group.setdefault(k, self.defaults[k])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = []
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                # Optimizer.load_state_dict casts the moments to the
+                # parameter's dtype.
+                st["exp_avg"] = st["exp_avg"].to(self.moment_dtype)
+                st["step"] += 1
+                states.append(st)
+            grads = [p.grad for p in params]
+            avgs = [st["exp_avg"] for st in states]
+            sqs = [st["exp_avg_sq"] for st in states]
+            step = float(states[0]["step"])
+            lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
+            beta1, beta2 = group["betas"]
+            torch._foreach_mul_(params, 1 - lr * wd)
+            if self.moment_dtype == torch.float32:
+                torch._foreach_lerp_(avgs, grads, 1 - beta1)
+                mus = avgs
+            else:
+                # optax: (1 - b1) * g + b1 * m, where JAX's promotion of
+                # the Python float b1 against the bf16 m rounds b1 to bf16
+                # too (0.9 -> 0.8984375).
+                b1 = float(torch.tensor(beta1, dtype=torch.bfloat16))
+                mus = torch._foreach_mul(grads, 1 - beta1)
+                torch._foreach_add_(mus, [a.float() for a in
+                                          torch._foreach_mul(avgs, b1)])
+                torch._foreach_copy_(avgs, mus)
+            torch._foreach_mul_(sqs, beta2)
+            torch._foreach_addcmul_(sqs, grads, grads, 1 - beta2)
+            step_size = lr / (1 - beta1 ** step)
+            denom = torch._foreach_sqrt(sqs)
+            torch._foreach_div_(denom, (1 - beta2 ** step) ** 0.5)
+            torch._foreach_add_(denom, eps)
+            torch._foreach_addcdiv_(params, mus, denom, -step_size)
+
+
+def make_optimizer(params: Dict[str, List[torch.Tensor]], cfg: OptimConfig,
+                   zero1: bool = False) -> torch.optim.Optimizer:
     """AdamW over the trainable groups {group name: tensors}; each param
     group carries its name, and the train step sets its lr every step. In
     distillation each group holds the student's tensors, then the
     teacher's (``train/state.init_train_state``): one AdamW over both
     models, in a fixed order, since ``checkpoint.restore`` loads the
-    moments by index."""
-    if cfg.moment_dtype != "float32":
-        raise NotImplementedError(
-            f"optim.moment_dtype={cfg.moment_dtype!r}: torch.optim.AdamW "
-            "keeps its moments in the parameters' dtype (f32 master "
-            "weights); bf16 moments are not ported")
+    moments by index. With ``zero1`` the AdamW is wrapped in
+    ``ZeroRedundancyOptimizer``: each rank keeps the moments of its share of
+    the tensors (every tensor is one rank's: the wrapper has no room for
+    JAX's policy of replicating leaves under 2**12 elements,
+    ``toist_tpu/parallel/mesh.py:87-113``), and broadcasts its updated
+    tensors after each step."""
     groups = [{"params": params[g], "name": g, "lr": 0.0}
               for g in GROUPS if params.get(g)]
-    return torch.optim.AdamW(groups, lr=0.0, weight_decay=cfg.weight_decay)
+    kw = dict(lr=0.0, weight_decay=cfg.weight_decay,
+              moment_dtype=cfg.moment_dtype)
+    if zero1:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+        return ZeroRedundancyOptimizer(groups, optimizer_class=AdamW, **kw)
+    return AdamW(groups, **kw)
 
 
 @torch.no_grad()

@@ -13,7 +13,9 @@ Distillation adds the teacher (the reference's model_noun), its EMA and the
 cluster bank (``toist_tpu/train/state.py:22-24``). The teacher trains
 beside the student under the same AdamW: its masters follow the student's
 in ``masters``, and each of the optimizer's groups holds the student's
-tensors of that group, then the teacher's.
+tensors of that group, then the teacher's. With more than one rank and
+``run.shard_opt_state`` (the default, as in JAX, ``toist_tpu/config.py:
+238``) the optimizer is ZeRO-1: each rank keeps a share of the moments.
 """
 from __future__ import annotations
 
@@ -27,12 +29,13 @@ from toist_tpu_torch.train.cluster import ClusterBank
 from toist_tpu_torch.train.optim import (GROUPS, freeze_parameters,
                                          label_params, make_optimizer,
                                          make_schedules)
+from toist_tpu_torch.utils.dist import process_count
 
 
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
-    optimizer: torch.optim.AdamW
+    optimizer: torch.optim.Optimizer
     schedules: Dict[str, Callable[[int], float]]
     # (parameter, its f32 master) for every trainable parameter; the master
     # is the parameter itself when that is f32.
@@ -71,7 +74,10 @@ def init_train_state(model: torch.nn.Module, cfg: Config,
                 ema[name] = m.detach().clone()
         emas.append(ema)
     return TrainState(model=model,
-                      optimizer=make_optimizer(groups, cfg.optim),
+                      optimizer=make_optimizer(
+                          groups, cfg.optim,
+                          zero1=cfg.run.shard_opt_state
+                          and process_count() > 1),
                       schedules=make_schedules(cfg.optim, steps_per_epoch,
                                                total_steps),
                       masters=masters, ema=emas[0], teacher=teacher,

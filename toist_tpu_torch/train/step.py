@@ -14,20 +14,29 @@ head runs on the matched queries and adds the focal and dice losses; under
 so only the mask branch has a backward. Scalars stay on the device: reading
 them is the caller's host sync. The distillation step (``train/distill.py``)
 shares ``accumulate_gradients`` and ``apply_gradients``.
+
+Across ranks (``utils/dist.init_distributed``) each rank steps on its slice
+of the global batch: the losses' denominators are the global batch's (one
+all-reduce of the counts per step), the gradients and scalars are summed
+over the ranks before the clip (``parallel/data.reduce_gradients``), every
+rank applies the same update, and the dropout streams differ by rank.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from toist_tpu_torch.config import Config
 from toist_tpu_torch.models.postprocess import postprocess_boxes
+from toist_tpu_torch.parallel import data as dp
 from toist_tpu_torch.train import cluster as cl
 from toist_tpu_torch.train import criterion as crit
 from toist_tpu_torch.train.optim import ema_update
 from toist_tpu_torch.train.state import TrainState, model_masters
+from toist_tpu_torch.utils import dist
 
 INPUT_KEYS = ("images", "image_mask", "text_ids", "text_mask")
 TARGET_KEYS = ("boxes", "positive_map", "box_valid", "sample_valid")
@@ -71,10 +80,14 @@ def dropout_generator(device: torch.device, seed: int, step: int,
     """The step's dropout randomness (``make_dropout_rng``: the run seed
     folded with the step, and with the microbatch under accumulation);
     ``stream`` tells apart the distillation step's four forward halves
-    (JAX's r1..r4)."""
+    (JAX's r1..r4). The rank is folded in too: the attention kernels hash
+    a sample's local batch index, so without it every rank would drop the
+    same elements of its sample 0, where JAX's global array gives each
+    sample its own bits."""
     g = torch.Generator(device=device)
     g.manual_seed((((seed * 1_000_003 + step) * 1_009 + micro)
-                   + stream * 0x9E3779B97F4A7C15) % 2 ** 63)
+                   + stream * 0x9E3779B97F4A7C15
+                   + dist.process_index() * 0xD1B54A32D192ED03) % 2 ** 63)
     return g
 
 
@@ -103,7 +116,7 @@ def forward_losses(model: torch.nn.Module, batch: Mapping[str, torch.Tensor],
             cache = model.encode(*args, generator=generator)
             bank, cache["img_memory_mod"], _ = cl.student_cluster(
                 bank, cache, batch, cfg.loss.kmeans_max_iters,
-                cfg.loss.kmeans_tol, train=False)
+                cfg.loss.kmeans_tol, train=False, across_ranks=True)
             out = model.decode(cache, use_modified_memory=True,
                                generator=generator)
         losses = crit.set_criterion(out, batch, cfg.loss)
@@ -133,6 +146,27 @@ def _plain_losses(state: TrainState, batch: Mapping[str, torch.Tensor],
     return total, losses
 
 
+def _with_normalisers(micro: List[Dict[object, Dict[str, torch.Tensor]]],
+                      accum: int) -> None:
+    """Put the global denominators into each microbatch of each stream: the
+    step's valid-box count / A (``num_boxes_override``, as JAX's
+    accumulation passes it) and the microbatch's counts of valid samples,
+    of samples with a box and of samples with a caption span, each summed
+    over the ranks (one all-reduce) and clamped to 1."""
+    counts = torch.stack([torch.stack([crit.normaliser_counts(b)
+                                       for b in mb.values()])
+                          for mb in micro])                     # [A, S, 4]
+    dist.all_reduce_sum(counts)
+    num_boxes = counts[..., 0].sum(0).clamp(min=1.0) / accum      # [S]
+    counts = counts.clamp(min=1.0)
+    for i, mb in enumerate(micro):
+        for j, b in enumerate(mb.values()):
+            b.update(num_boxes_override=num_boxes[j],
+                     num_samples_override=counts[i, j, 1],
+                     num_with_boxes_override=counts[i, j, 2],
+                     num_with_span_override=counts[i, j, 3])
+
+
 def accumulate_gradients(state: TrainState, batch: Mapping[str, torch.Tensor],
                          cfg: Config, weight_dict: Mapping[str, float],
                          losses_fn: Callable = _plain_losses
@@ -144,24 +178,22 @@ def accumulate_gradients(state: TrainState, batch: Mapping[str, torch.Tensor],
     batch's valid-box count / A (per stream for a distillation pair), so the
     result equals one pass over the whole batch; each draws its own dropout
     generators. The cluster bank threads through the microbatches in order.
+    Across ranks every count is the global batch's (``_with_normalisers``),
+    so each rank's gradient is its share of the global batch's.
     ``losses_fn(state, microbatch, cfg, weight_dict, i) -> (total, losses)``
     runs one microbatch's forward (``_plain_losses``, or distillation's).
-    Returns the microbatch-mean scalars."""
+    Returns the microbatch-mean scalars (this rank's shares)."""
     accum = max(1, cfg.optim.grad_accum_steps)
     streams = batch if "box_valid" not in batch else {None: batch}
     B = next(iter(streams.values()))["images"].shape[0]
     if B % accum:
         raise ValueError(f"batch {B} is not {accum} microbatches")
     n = B // accum
-    num_boxes = {s: crit.compute_num_boxes(b["box_valid"], b["sample_valid"])
-                 for s, b in streams.items()}
+    micro = [{s: {k: v[i * n:(i + 1) * n] for k, v in b.items()}
+              for s, b in streams.items()} for i in range(accum)]
+    _with_normalisers(micro, accum)
     sums: Dict[str, torch.Tensor] = {}
-    for i in range(accum):
-        mb = {s: {k: v[i * n:(i + 1) * n] for k, v in b.items()}
-              for s, b in streams.items()}
-        if accum > 1:
-            for s in mb:
-                mb[s]["num_boxes_override"] = num_boxes[s] / accum
+    for i, mb in enumerate(micro):
         total, losses = losses_fn(state, mb[None] if None in mb else mb, cfg,
                                   weight_dict, i)
         total.backward()
@@ -184,11 +216,14 @@ def accumulate_gradients(state: TrainState, batch: Mapping[str, torch.Tensor],
 
 def apply_gradients(state: TrainState, cfg: Config,
                     scalars: Dict[str, torch.Tensor]) -> TrainState:
-    """``clip_grad_norm_`` over every trainable master (both models' in
-    distillation), AdamW at the groups' scheduled lr, the masters copied
-    into the models' parameters, the EMA of each model, the step. Adds
-    "grad_norm" and "loss_is_finite" to ``scalars``."""
+    """The gradients and ``scalars`` summed over the ranks
+    (``reduce_gradients``), then ``clip_grad_norm_`` over every trainable
+    master (both models' in distillation), AdamW at the groups' scheduled
+    lr, the masters copied into the models' parameters, the EMA of each
+    model, the step. Adds "grad_norm" and "loss_is_finite" to
+    ``scalars``."""
     masters = [m for _, m in state.masters]
+    dp.reduce_gradients([m.grad for m in masters], scalars)
     scalars["grad_norm"] = torch.nn.utils.clip_grad_norm_(
         masters, cfg.optim.clip_max_norm)
     for group in state.optimizer.param_groups:

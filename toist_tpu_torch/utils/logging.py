@@ -1,12 +1,14 @@
 """Metric logging: smoothed meters, stdout progress, JSONL sink.
 
 The part of ``toist_tpu/utils/logging.py`` that the engine and ``main`` use
-(``SmoothedValue``, ``MetricLogger`` without its cross-host merge, and
-``JsonlLogger``), copied line for line; ``JsonlLogger`` takes its rank from
-``torch.distributed`` (``utils/dist.py``) where the JAX package asks jax.
-Reference behavior: util/metrics.py SmoothedValue/MetricLogger (window
-meters, eta/iter-time printing every N steps) and main.py:687-689 (log.txt
-JSON lines, rank 0 only via util/dist.py:199).
+(``SmoothedValue``, ``merge_meter_states``, ``MetricLogger`` and
+``JsonlLogger``), copied line for line but for the transport: the rank and
+process count, and the gather of ``MetricLogger.
+synchronize_between_processes``, come from ``torch.distributed``
+(``utils/dist.py``) where the JAX package asks jax. Reference behavior:
+util/metrics.py SmoothedValue/MetricLogger (window meters, eta/iter-time
+printing every N steps, cross-rank meter all-reduce before epoch stats) and
+main.py:687-689 (log.txt JSON lines, rank 0 only via util/dist.py:199).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import json
 import os
 import time
 from collections import defaultdict, deque
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 # Wall-clock meters recorded by log_every itself. They appear in summary()
 # (data_time is how input-boundness is diagnosed from artifacts) but are
@@ -48,6 +50,19 @@ class SmoothedValue:
         return self.total / max(self.count, 1)
 
 
+def merge_meter_states(states: List[Dict[str, Tuple[float, int]]]
+                       ) -> Dict[str, Tuple[float, int]]:
+    """Pure cross-host meter merge: per-key (total, count) sums.
+
+    Factored out of MetricLogger.synchronize_between_processes so the merge is
+    unit-testable without a multi-host runtime (two simulated hosts' states in,
+    one merged state out)."""
+    merged: Dict[str, Tuple[float, int]] = {}
+    for state in states:
+        for k, (tot, cnt) in state.items():
+            t0, c0 = merged.get(k, (0.0, 0))
+            merged[k] = (t0 + float(tot), c0 + int(cnt))
+    return merged
 
 
 class MetricLogger:
@@ -92,6 +107,28 @@ class MetricLogger:
         print(f"{self.header} done in "
               f"{datetime.timedelta(seconds=int(time.time() - start))}",
               flush=True)
+
+    def meter_state(self) -> Dict[str, Tuple[float, int]]:
+        return {k: (m.total, m.count) for k, m in self.meters.items()}
+
+    def load_meter_state(self, state: Dict[str, Tuple[float, int]]):
+        for k, (tot, cnt) in state.items():
+            m = self.meters[k]
+            m.total, m.count = float(tot), int(cnt)
+
+    def synchronize_between_processes(self):
+        """All-reduce meter totals/counts across hosts so epoch stats are
+        global (reference util/metrics.py:34-46). No-op single-host. Hosts may
+        hold different key sets (e.g. a loss key first seen late); the merge
+        is keyed, not positional, via a pickled object gather."""
+        from toist_tpu_torch.utils import dist
+
+        if dist.process_count() == 1:
+            return
+        # The same JSON payloads, gathered by torch.distributed.
+        payloads = dist.all_gather_object(json.dumps(self.meter_state()))
+        states = [json.loads(p) for p in payloads]
+        self.load_meter_state(merge_meter_states(states))
 
     def summary(self) -> Dict[str, float]:
         return {k: m.global_avg for k, m in self.meters.items()}
