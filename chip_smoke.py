@@ -185,6 +185,33 @@ Phases, each of which raises on failure (non-zero exit):
      (a)'s moment bytes per rank. It prints per run the step ms, img/s,
      the gradient all-reduce's ms per step (CUDA events), the moment bytes
      per rank and the host seconds of main's parts.
+ 15. the rest of the JAX package's modes, at full width in bf16: (a)
+     toist_tpu_torch.main with model.backbone=timm_tf_efficientnet_b3_ns
+     (MDETR's published B3 backbone), fresh, with run.pretrained_backbone
+     and run.pretrained_text (a timm B3 and a Hugging Face roberta-base
+     state dict, random from a seed in their own layouts) and
+     run.profile_dir: one epoch of batch 6 on a 2 x 12 fixture and the eval
+     at batch 8; the files' tensors in the model bit for bit before the
+     first step, 12 / 12 / 12 / 1 launches per step and 12 + 1 per eval
+     batch, one trace file and one [profile] line; then
+     Predictor.from_checkpoint of its checkpoint on 8 images, visualize of
+     it (min(20, images) PNGs), and one f32 eval batch through the kernels
+     against the plain attention (2e-3). (b) model.remat on the flagship:
+     bf16 steps at batch 6 on 832x1344 with and without remat on the same
+     batches (18 / 12 / 12 / 1 launches per step with remat; step ms and
+     peak memory beside phase 8's), and one f32 step at rate 0.1 with
+     remat against one without on the same generator (losses 1e-4,
+     gradients 2e-3). (c) tensor parallelism: torchrun of 2 ranks sharing
+     the card on gloo as a (1, 2) ('data', 'model') grid, plain detection
+     at batch 6 per data group on phase 14's fixture, one epoch and the
+     eval; 12 / 12 / 12 / 1 launches per rank and step, every forward at 4
+     heads over D = 128, the replicated f32 masters equal bit for bit
+     across the ranks, and the consolidated checkpoint in one process on
+     an f32 batch against the TP ranks' f32 forward (2e-3); it prints the
+     step ms, the model group's all-reduces per step (count and bytes), the
+     moment bytes per rank and the host seconds of main's parts. Phases 3
+     and 10 also hold and time the kernels at a TP rank's shapes, [6, 1156,
+     128] with 4 heads and the decoder cross [6, 100, 128] over 1156 keys.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -373,41 +400,41 @@ def phase_build():
     return secs, ptxas
 
 
-def attention_bound(kind, b, sq, s, dtype_name):
+def attention_bound(kind, b, sq, s, dtype_name, d=D, h=H):
     """(bound ms, "operations" or "bytes") of one attention kernel call:
     its products over the card's peak rate for the dtype, against its
     inputs read once and outputs written once over the memory rate."""
     e = 2 if dtype_name == "bfloat16" else 4
-    q_b, kv_b = b * sq * D * e, b * s * D * e
-    rows_f32 = b * H * sq * 4                 # lse or D, [B, H, Sq] f32
+    q_b, kv_b = b * sq * d * e, b * s * d * e
+    rows_f32 = b * h * sq * 4                 # lse or D, [B, H, Sq] f32
     mask_b = b * s                            # key padding mask, u8
     nbytes = {"fwd": q_b + 2 * kv_b + mask_b + q_b + rows_f32,
               "dkv": 2 * q_b + 2 * kv_b + mask_b + 2 * rows_f32 + 2 * kv_b,
               "dq": 2 * q_b + 2 * kv_b + mask_b + 2 * rows_f32 + q_b}[kind]
-    flops = PRODUCTS[kind] * 2 * b * sq * s * D
+    flops = PRODUCTS[kind] * 2 * b * sq * s * d
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def exp_bound(b, sq, s):
+def exp_bound(b, sq, s, h=H):
     """ms the card's special-function units take for one exp2 per score
-    (b * H * sq * s of them) at the maximum SM clock: the floor of a
+    (b * h * sq * s of them) at the maximum SM clock: the floor of a
     forward whose products are too shallow (hd 32) to be its limit."""
     rate = EX2_PER_CLOCK_PER_SM * CARD["sms"] * CARD["max_sm_mhz"] * 1e6
-    return b * H * sq * s / rate * 1e3
+    return b * h * sq * s / rate * 1e3
 
 
-def _sdpa_inputs(q, k, v, mask):
-    """[B, H, S, hd] copies of q, k, v and a boolean attn_mask [B, 1, 1, S]
+def _sdpa_inputs(q, k, v, mask, h=H):
+    """[B, h, S, hd] copies of q, k, v and a boolean attn_mask [B, 1, 1, S]
     (True = take part) in which every row keeps at least one real key:
     SDPA's inputs for the library yardstick, made outside any timed region.
     """
     import torch
 
     def heads(t):
-        return t.reshape(t.shape[0], t.shape[1], H, -1).transpose(1, 2) \
+        return t.reshape(t.shape[0], t.shape[1], h, -1).transpose(1, 2) \
             .contiguous()
 
     keep = ~mask
@@ -428,11 +455,18 @@ def sdpa_backend(q, k, v, attn_mask, dropout_p):
     return names.get(choice, str(choice))
 
 
+# Phase 15(c)'s tensor-parallel ranks: each of a model group of 2 runs the
+# joint attention on its 4 of the 8 heads, [6, S, 256 / 2].
+TP = 2
+
+
 def attention_shapes():
-    """(name, Sq, S) of the kernel's calls. The serving path's canvas is
-    800x1344 (batcher.default_buckets: the short side 800 is already a
-    multiple of 32), so its joint sequence is 25*42 image + 64 text = 1114
-    tokens; 832x1344, the top training canvas, gives 26*42 + 64 = 1156."""
+    """(name, B, Sq, S, D, heads) of the kernel's calls. The serving path's
+    canvas is 800x1344 (batcher.default_buckets: the short side 800 is
+    already a multiple of 32), so its joint sequence is 25*42 image + 64
+    text = 1114 tokens; 832x1344, the top training canvas, gives 26*42 + 64
+    = 1156. A tensor-parallel rank's calls hold its heads: [6, S, D / TP]
+    with H / TP heads."""
     from toist_tpu_torch.config import Config
     from toist_tpu_torch.data.batcher import default_buckets
 
@@ -440,10 +474,13 @@ def attention_shapes():
     h, w = default_buckets(data.max_size, data.val_size)[0]
     s_eval = (h // 32) * (w // 32) + data.max_text_len
     s_832 = (832 // 32) * (1344 // 32) + data.max_text_len
-    return [("encoder", s_eval, s_eval),
-            ("decoder_cross", NUM_QUERIES, s_eval),
-            ("encoder_832x1344", s_832, s_832),
-            ("decoder_cross_832x1344", NUM_QUERIES, s_832)]
+    return [("encoder", B, s_eval, s_eval, D, H),
+            ("decoder_cross", B, NUM_QUERIES, s_eval, D, H),
+            ("encoder_832x1344", B, s_832, s_832, D, H),
+            ("decoder_cross_832x1344", B, NUM_QUERIES, s_832, D, H),
+            ("tp_encoder_832x1344", TRAIN_B, s_832, s_832, D // TP, H // TP),
+            ("tp_decoder_cross_832x1344", TRAIN_B, NUM_QUERIES, s_832,
+             D // TP, H // TP)]
 
 
 def phase_kernel_vs_plain():
@@ -455,12 +492,12 @@ def phase_kernel_vs_plain():
     fa = flash_attention
     g = torch.Generator().manual_seed(SEED)
     cases = []
-    for shape_name, Sq, S in attention_shapes():
-        q32 = torch.randn((B, Sq, D), generator=g)
-        k32 = torch.randn((B, S, D), generator=g)
-        v32 = torch.randn((B, S, D), generator=g)
-        mask = torch.rand(B, S, generator=g) < 0.2
-        mask[B - 1] = True                      # one fully masked row
+    for shape_name, b, Sq, S, d, h in attention_shapes():
+        q32 = torch.randn((b, Sq, d), generator=g)
+        k32 = torch.randn((b, S, d), generator=g)
+        v32 = torch.randn((b, S, d), generator=g)
+        mask = torch.rand(b, S, generator=g) < 0.2
+        mask[b - 1] = True                      # one fully masked row
         mask = mask.cuda()
         for dt_name, dt in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
@@ -468,16 +505,16 @@ def phase_kernel_vs_plain():
             atol, rtol = TOL[dt_name]
             for m_name, m in (("mask", mask), ("no_mask", None)):
                 before = (fa.launches, fa.fwd_tc_launches)
-                o, lse = flash_attention(q, k, v, m, H)
+                o, lse = flash_attention(q, k, v, m, h)
                 torch.cuda.synchronize()
                 # bf16 runs the tensor-core kernel, f32 the scalar one.
                 route = {"fwd": fa.launches - before[0],
                          "fwd_tc": fa.fwd_tc_launches - before[1]}
-                ro, rlse = attention_plain(q, k, v, m, H)
+                ro, rlse = attention_plain(q, k, v, m, h)
                 err = (o.float() - ro.float()).abs().max().item()
                 # The scale-aware check, against the plain version in f32.
                 rel = _rel_err(o, attention_plain(q.float(), k.float(),
-                                                  v.float(), m, H)[0])
+                                                  v.float(), m, h)[0])
                 # Fully masked rows have lse near -1.44e9, so relative.
                 lse_err = ((lse - rlse).abs() / rlse.abs().clamp(min=1.0)
                            ).max().item()
@@ -486,7 +523,8 @@ def phase_kernel_vs_plain():
                     and rel <= REL_TOL[dt_name]
                     and lse_err < 1e-5 and route == {
                         "fwd": 1, "fwd_tc": int(dt == torch.bfloat16)})
-                case = {"shape": shape_name, "q": [B, Sq, D], "kv": [B, S, D],
+                case = {"shape": shape_name, "q": [b, Sq, d], "kv": [b, S, d],
+                        "heads": h,
                         "dtype": dt_name, "mask": m_name, "route": route,
                         "max_abs_err": err, "rel_err": rel,
                         "lse_max_rel_err": lse_err, "atol": atol,
@@ -983,28 +1021,6 @@ def phase_train(smi, state_dict, root):
             "img_s": total_img / total_s, "profile": profile}, first_batch
 
 
-def _kernel_kind(name):
-    """Coarse kind of a CUDA kernel, from its name."""
-    low = name.lower()
-    for kind, keys in (
-            ("attention forward", ("flash_fwd",)),
-            ("attention dK/dV", ("flash_bwd_dkv",)),
-            ("attention dQ", ("flash_bwd_dq",)),
-            ("LSA", ("lsa",)),
-            ("optimizer (foreach)", ("multi_tensor", "foreach")),
-            ("GEMM / convolution", ("gemm", "xmma", "cutlass", "conv",
-                                    "cudnn", "sm90", "sm80", "nhwc",
-                                    "nchw", "wgrad", "dgrad", "fprop")),
-            ("reduction", ("reduce", "norm", "softmax", "cunn_",
-                           "cross_entropy")),
-            ("copy / memset", ("memcpy", "memset", "copy")),
-            ("elementwise", ("elementwise", "vectorized", "unrolled",
-                             "index", "where"))):
-        if any(k in low for k in keys):
-            return kind
-    return "other"
-
-
 def _canvas(batch):
     """(H, W) of a batch, or of a distillation pair's."""
     return tuple((batch["sth"] if "sth" in batch else batch)["images"]
@@ -1021,6 +1037,8 @@ def _profile_steps(smi, step, state, it, canvas, n=3, label="bf16",
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from toist_tpu_torch.utils.profiling import kernel_kind
 
     batches = [b for b in it.epoch(2, num_workers=1)
                if _canvas(b) == canvas]
@@ -1053,7 +1071,7 @@ def _profile_steps(smi, step, state, it, canvas, n=3, label="bf16",
         if us is None:
             us = e.self_cuda_time_total
         ms = us / 1e3 / n
-        kind = _kernel_kind(e.key)
+        kind = kernel_kind(e.key)
         kinds[kind] = kinds.get(kind, 0.0) + ms
         launches += e.count
         top.append((ms, e.key[:70], kind, e.count / n))
@@ -1213,7 +1231,7 @@ def phase_train_kernel_vs_plain(state_dict, batch):
     return res, (cost_t.numpy(), n_valid.numpy())
 
 
-def _attention_times(q, k, v, mask, w, rate, backward):
+def _attention_times(q, k, v, mask, w, rate, backward, h=H):
     """Device ms per call of the attention kernels at ``rate``, of the plain
     version given the kernels' dropout mask (its forward; autograd's dQ +
     dK + dV), and of PyTorch's scaled_dot_product_attention at the same
@@ -1231,34 +1249,34 @@ def _attention_times(q, k, v, mask, w, rate, backward):
     seed = keep = None
     if drop_q:
         seed = torch.tensor([SEED + 7], dtype=torch.int64, device="cuda")
-        keep = fa.dropout_keep_mask(seed, b, H, sq, s, rate)
-    sq_, sk_, sv_, sm_ = _sdpa_inputs(q, k, v, mask)
+        keep = fa.dropout_keep_mask(seed, b, h, sq, s, rate)
+    sq_, sk_, sv_, sm_ = _sdpa_inputs(q, k, v, mask, h)
 
     def sdpa():
         return F.scaled_dot_product_attention(sq_, sk_, sv_, sm_,
                                               dropout_p=rate)
 
-    t = {"fwd": device_ms(lambda: fa._launch_fwd(q, k, v, mask_u8, H,
+    t = {"fwd": device_ms(lambda: fa._launch_fwd(q, k, v, mask_u8, h,
                                                   drop_q, seed)),
          "plain_fwd": device_ms(lambda: fa.attention_plain(
-             q, k, v, mask, H, keep, rate))}
+             q, k, v, mask, h, keep, rate))}
     with torch.no_grad():
         t["library_fwd"] = device_ms(sdpa)
     t["sdpa_backend"] = sdpa_backend(sq_, sk_, sv_, sm_, rate)
     if not backward:
         return t
-    o, lse = fa._launch_fwd(q, k, v, mask_u8, H, drop_q, seed)
+    o, lse = fa._launch_fwd(q, k, v, mask_u8, h, drop_q, seed)
     do = w.to(q.dtype).contiguous()
-    args = (q, k, v, mask_u8, do, lse, fa.row_dsum(do, o, H), H, drop_q,
+    args = (q, k, v, mask_u8, do, lse, fa.row_dsum(do, o, h), h, drop_q,
             seed)
     t["dkv"] = device_ms(lambda: fa._launch_dkv(*args))
     t["dq"] = device_ms(lambda: fa._launch_dq(*args))
     qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
-    op = fa.attention_plain(qp, kp, vp, mask, H, keep, rate)[0]
+    op = fa.attention_plain(qp, kp, vp, mask, h, keep, rate)[0]
     t["plain_bwd"] = device_ms(lambda: torch.autograd.grad(
         op, (qp, kp, vp), do, retain_graph=True))
     sq_, sk_, sv_ = (x.requires_grad_() for x in (sq_, sk_, sv_))
-    sdo = do.reshape(b, sq, H, -1).transpose(1, 2).contiguous()
+    sdo = do.reshape(b, sq, h, -1).transpose(1, 2).contiguous()
     t["library_fwd_bwd"] = device_ms(lambda: torch.autograd.grad(
         sdpa(), (sq_, sk_, sv_), sdo))
     so = sdpa()
@@ -1280,12 +1298,17 @@ def phase_times(smi, lsa_cases, lsa_inputs):
     s_832 = (832 // 32) * (1344 // 32) + 64
     g = torch.Generator().manual_seed(SEED + 2)
     out = {}
-    for name, b, sq, s, backward in (
-            ("serving_encoder", B, s_eval, s_eval, False),
-            ("serving_decoder_cross", B, NUM_QUERIES, s_eval, False),
-            ("train_encoder", TRAIN_B, s_832, s_832, True),
-            ("train_decoder_cross", TRAIN_B, NUM_QUERIES, s_832, True)):
-        q32, k32, v32, w = (torch.randn((b, n, D), generator=g)
+    for name, b, sq, s, backward, d, h in (
+            ("serving_encoder", B, s_eval, s_eval, False, D, H),
+            ("serving_decoder_cross", B, NUM_QUERIES, s_eval, False, D, H),
+            ("train_encoder", TRAIN_B, s_832, s_832, True, D, H),
+            ("train_decoder_cross", TRAIN_B, NUM_QUERIES, s_832, True, D, H),
+            # A tensor-parallel rank's share (phase 15(c)): its 4 heads.
+            ("tp_train_encoder", TRAIN_B, s_832, s_832, True, D // TP,
+             H // TP),
+            ("tp_train_decoder_cross", TRAIN_B, NUM_QUERIES, s_832, True,
+             D // TP, H // TP)):
+        q32, k32, v32, w = (torch.randn((b, n, d), generator=g)
                             for n in (sq, s, s, sq))
         mask = torch.rand(b, s, generator=g) < 0.2
         mask[b - 1] = True                      # one fully masked row
@@ -1293,21 +1316,22 @@ def phase_times(smi, lsa_cases, lsa_inputs):
         out[name] = {}
         for dt_name, dt in (("bfloat16", torch.bfloat16),
                             ("float32", torch.float32)):
-            if dt == torch.float32 and "encoder" not in name:
+            if dt == torch.float32 and ("encoder" not in name
+                                         or name.startswith("tp_")):
                 continue
             q, k, v = (x.to("cuda", dt) for x in (q32, k32, v32))
             rates = (0.0, DROP_RATE) if backward and dt == torch.bfloat16 \
-                else (0.0,)
+                and not name.startswith("tp_") else (0.0,)
             per = {}
             for rate in rates:
                 per[rate] = _attention_times(q, k, v, mask, w, rate,
-                                             backward)
+                                             backward, h)
                 per[rate]["bound"] = {
-                    kind: attention_bound(kind, b, sq, s, dt_name)
+                    kind: attention_bound(kind, b, sq, s, dt_name, d, h)
                     for kind in (PRODUCTS if backward else ("fwd",))}
-                per[rate]["exp_bound_ms"] = exp_bound(b, sq, s)
-            log(f"[times] {name} [{b},{sq},{D}] over [{b},{s},{D}] "
-                f"{dt_name}: {json.dumps(per)}")
+                per[rate]["exp_bound_ms"] = exp_bound(b, sq, s, h)
+            log(f"[times] {name} [{b},{sq},{d}] over [{b},{s},{d}], {h} "
+                f"heads, {dt_name}: {json.dumps(per)}")
             if DROP_RATE in per:
                 per["dropout_overhead"] = {
                     kind: per[DROP_RATE][kind] / per[0.0][kind] - 1.0
@@ -2712,7 +2736,9 @@ def rank_worker(spec_path):
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
     from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.ops import flash_attention as fa
     from toist_tpu_torch.parallel import data as dp
+    from toist_tpu_torch.parallel import tp
     from toist_tpu_torch.train import checkpoint as ckpt
     from toist_tpu_torch.train import engine
     from toist_tpu_torch.utils import dist
@@ -2720,6 +2746,13 @@ def rank_worker(spec_path):
     with open(spec_path) as f:
         spec = json.load(f)
     rec = {"steps": [], "eval_launches": [], "reduce_ms": [], "parts_s": {}}
+    # Phase 15(c): the (heads, D) of every forward launch.
+    shapes, launch_fwd = set(), fa._launch_fwd
+
+    def shaped_fwd(q, k, v, mask_u8, num_heads, *rest):
+        shapes.add((num_heads, q.shape[2]))
+        return launch_fwd(q, k, v, mask_u8, num_heads, *rest)
+    fa._launch_fwd = shaped_fwd
 
     def timed(part, fn):
         def run(*args, **kwargs):
@@ -2739,6 +2772,7 @@ def rank_worker(spec_path):
             def train_step(state, batch):
                 torch.cuda.synchronize()
                 before = read_counts()
+                tp.reset_counts()
                 t0 = time.perf_counter()
                 state, scalars = step(state, batch)
                 torch.cuda.synchronize()
@@ -2750,6 +2784,7 @@ def rank_worker(spec_path):
                 rec["steps"].append({
                     "ms": ms, "images": int(sv.sum()),
                     "launches": {k: after[k] - before[k] for k in after},
+                    "tp": dict(tp.COUNTS),
                     "loss": float(scalars["loss"])})
                 rec["reduce_ms"] += [s.elapsed_time(e) for s, e in events]
                 events.clear()
@@ -2789,10 +2824,18 @@ def rank_worker(spec_path):
         mine = dict(rec, rank=dist.process_index(),
                     backend=torch.distributed.get_backend(),
                     device=str(torch.cuda.current_device()))
+        if "tp_batch" in spec:
+            _tp_f32_forward(spec)
+        mine["fwd_shapes"] = sorted(map(list, shapes))
         if state is not None:
             bank = state.cluster_bank
             mine.update(
                 masters=_digest(m for _, m in state.masters),
+                masters_replicated=_digest(
+                    m for p, m in state.masters if not hasattr(p, "tp_spec")),
+                sharded_numel=sum(p.numel() for p in
+                                  state.model.parameters()
+                                  if hasattr(p, "tp_spec")),
                 n_masters=len(state.masters),
                 bank=_digest([bank.feature_bank, bank.cluster_centers,
                               bank.update_count, bank.full])
@@ -2822,6 +2865,33 @@ def rank_worker(spec_path):
     pmain.main(pmain.parse_args(spec["argv"]))
 
 
+def _tp_f32_forward(spec):
+    """A tensor-parallel rank's f32 forward of the run's checkpoint on
+    spec["tp_batch"] (the kernels' f32 route on its heads); rank 0 saves
+    the logits and boxes to spec["tp_logits"]."""
+    import torch
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.parallel import tp
+    from toist_tpu_torch.train import checkpoint as ckpt
+    from toist_tpu_torch.train.step import eval_forward
+    from toist_tpu_torch.utils import dist
+
+    torch.distributed.barrier()         # rank 0's checkpoint is written
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = pmain.parse_args(spec["argv"] + ["model.compute_dtype=float32"])
+    model = TOIST.from_state_dict(ckpt.load_params(spec["checkpoint"]),
+                                  cfg.model)
+    tp.shard_model(model, (dist.model_index(), dist.model_count()))
+    out, _ = eval_forward(model, torch.load(spec["tp_batch"],
+                                            weights_only=False))
+    if dist.process_index() == 0:
+        torch.save({k: out[k].cpu() for k in ("pred_logits", "pred_boxes")},
+                   spec["tp_logits"])
+
+
 def _torchrun(nproc, target, out, timeout=DP_TIMEOUT):
     """Run ``torchrun --standalone --nproc_per_node nproc <target>`` from
     the repository root; its output goes to <out>.log. Raises unless it
@@ -2847,12 +2917,12 @@ def _torchrun(nproc, target, out, timeout=DP_TIMEOUT):
     return seconds
 
 
-def _dp_run(root, name, nproc, argv):
-    """One torchrun of rank_worker over toist_tpu_torch.main ``argv``;
-    returns (the ranks' records, seconds)."""
+def _dp_run(root, name, nproc, argv, extra=None):
+    """One torchrun of rank_worker over toist_tpu_torch.main ``argv`` (and
+    ``extra`` keys of its spec); returns (the ranks' records, seconds)."""
     out = os.path.join(root, name)
-    spec = {"argv": ["--output-dir", out] + argv,
-            "result": out + ".json"}
+    spec = dict(extra or {}, argv=["--output-dir", out] + argv,
+                result=out + ".json")
     with open(out + ".spec.json", "w") as f:
         json.dump(spec, f)
     seconds = _torchrun(nproc, ["chip_smoke.py", "--rank-worker",
@@ -3038,6 +3108,511 @@ def phase_dp(smi, root):
     return res
 
 
+# -- phase 15: EfficientNet-B3 with pretrained files, remat, tensor parallel --
+
+EFFNET = "timm_tf_efficientnet_b3_ns"   # MDETR's published B3 backbone
+REMAT_TRAIN = dict(DP_TRAIN, fwd=18, fwd_tc=18, dropout=18 + 24)
+TP_SETS = ["run.mesh_shape=[-1,2]", 'run.mesh_axes=["data","model"]']
+VIS_MAX = 20
+
+
+class _Tee:
+    """A stream that writes to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, []
+
+    def write(self, text):
+        self.kept.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _upstream_files(root, cfg, vocab):
+    """A timm EfficientNet-B3 and a Hugging Face roberta-base state dict,
+    random from a seed in their own layouts (timm's head, HF's
+    position_ids and pooler beside the model's tensors; the word
+    embeddings cut to the fixture tokenizer's vocabulary, as phase 11's
+    --load), written as .pth files. Returns (paths, state dicts)."""
+    import torch
+
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.utils.pretrained import BACKBONE, TEXT
+
+    with torch.device("meta"):
+        model = TOIST(cfg.model, text_vocab_size=vocab)
+    g = torch.Generator().manual_seed(SEED + 15)
+    files = {}
+    for prefix, name in ((BACKBONE, "tf_efficientnet_b3_ns.pth"),
+                         (TEXT, "roberta-base.bin")):
+        sd = {}
+        for k, v in model.state_dict().items():
+            if not k.startswith(prefix):
+                continue
+            k = k[len(prefix):]
+            if k.endswith("running_var"):
+                t = torch.rand(v.shape, generator=g) + 0.5
+            elif k.endswith("running_mean") or k.endswith("bias"):
+                t = torch.randn(v.shape, generator=g) * 0.02
+            elif "LayerNorm" in k or v.dim() == 1:
+                t = 1.0 + torch.randn(v.shape, generator=g) * 0.02
+            elif v.dim() == 4:          # conv: std 1 / sqrt(fan_in)
+                t = torch.randn(v.shape, generator=g) / v[0].numel() ** 0.5
+            else:
+                t = torch.randn(v.shape, generator=g) * 0.02
+            sd[k] = t
+        if prefix == BACKBONE:
+            sd.update({"conv_head.weight": torch.zeros(1536, 384, 1, 1),
+                       "bn2.weight": torch.ones(1536),
+                       "classifier.weight": torch.zeros(1000, 1536)})
+        else:
+            sd["embeddings.position_ids"] = torch.arange(514)[None]
+            sd["pooler.dense.weight"] = torch.zeros(768, 768)
+        path = os.path.join(root, name)
+        torch.save(sd, path)
+        files[prefix] = (path, sd)
+    return files
+
+
+def _f32_kernel_vs_plain(label, model, batch):
+    """One eval batch in f32 through the kernels and through the plain
+    attention: pred_logits and pred_boxes within SLICE_TOL."""
+    import torch
+
+    from toist_tpu_torch.models.layers import set_fused_attention
+    from toist_tpu_torch.train.step import eval_forward
+
+    reset_counts()
+    out_k, _ = eval_forward(model, batch)
+    launches = read_counts()
+    set_fused_attention(model, False)
+    out_p, _ = eval_forward(model, batch)
+    set_fused_attention(model, True)
+    errs = {}
+    for key in ("pred_logits", "pred_boxes"):
+        a, b = out_k[key], out_p[key]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{label}: {key} not finite")
+        errs[key] = (a - b).abs().max().item()
+    log(f"[{label}] f32 eval batch, kernel vs plain max abs err "
+        f"{json.dumps(errs)} (tolerance {SLICE_TOL}), launches "
+        f"{json.dumps(launches)}")
+    if max(errs.values()) > SLICE_TOL or launches["fwd"] != \
+            LAUNCHES_PER_FORWARD or launches["fwd_tc"]:
+        raise AssertionError(f"{label} f32 kernel vs plain: {errs}, "
+                             f"{launches}")
+    return errs
+
+
+def phase_effnet(smi, root, phase8):
+    """Phase 15(a): toist_tpu_torch.main with model.backbone
+    timm_tf_efficientnet_b3_ns, fresh, with run.pretrained_backbone (timm
+    B3) and run.pretrained_text (HF roberta-base), run.profile_dir (which
+    traces the first epoch), two epochs of batch 6, each with the eval at
+    batch 8 (the second epoch's steps, untraced, give the step ms); then
+    Predictor.from_checkpoint of its checkpoint on 8 images and visualize
+    of the checkpoint."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.data.batcher import BatchIterator
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.data.fixtures import generate_fixture
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.predict import Predictor
+    from toist_tpu_torch.train import checkpoint as ckpt
+    from toist_tpu_torch.train import engine
+    from toist_tpu_torch.train.state import model_masters
+    from toist_tpu_torch.utils.pretrained import BACKBONE, TEXT
+    from toist_tpu_torch.visualize import visualize
+
+    t_phase = time.perf_counter()
+    data = os.path.join(root, "effnet_data")
+    generate_fixture(data, num_tasks=2, imgs_per_split=12, seed=SEED)
+    out, prof = (os.path.join(root, n) for n in ("effnet_out",
+                                                  "effnet_profile"))
+    sets = [f"data.coco_path={data}",
+            f"data.refexp_ann_path={os.path.join(data, 'annotations')}",
+            "data.tasks=[1,2]", "data.num_workers=4", "optim.epochs=2",
+            f"optim.train_batch_size={TRAIN_B}",
+            f"optim.valid_batch_size={B}", "optim.eval_skip=1",
+            f"model.backbone={EFFNET}"]
+    cfg0 = pmain.parse_args(["--set", *sets])
+    vocab = build_tokenizer(cfg0).vocab_size
+    files = _upstream_files(root, cfg0, vocab)
+    sets += [f"run.pretrained_backbone={files[BACKBONE][0]}",
+             f"run.pretrained_text={files[TEXT][0]}",
+             f"run.profile_dir={prof}"]
+    argv = ["--output-dir", out, "--set", *sets]
+    cfg = pmain.parse_args(argv)
+
+    hooks = _Hooks()
+    landed, steps, epoch = {}, [], [None]
+    make, one_epoch = pmain.make_train_step, engine.train_one_epoch
+
+    def tagged(step, state, it, n, **kwargs):
+        epoch[0] = n
+        return one_epoch(step, state, it, n, **kwargs)
+
+    def checked(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def train_step(state, batch):
+            if not landed:        # before the first step: the files' tensors
+                masters = {n: m for n, _, m in model_masters(state)}
+                own = state.model.state_dict()
+                bad = []
+                for prefix, (_, sd) in files.items():
+                    for k, v in sd.items():
+                        n = prefix + k
+                        if n in masters:
+                            ok = torch.equal(masters[n].cpu(), v)
+                        elif n in own:    # frozen BN, in the compute dtype
+                            ok = torch.equal(own[n].cpu(), v.to(
+                                own[n].dtype))
+                        else:
+                            continue
+                        landed[n] = ok
+                        if not ok:
+                            bad.append(n)
+                landed["_bad"] = bad
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, scalars = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "epoch": epoch[0],
+                          "canvas": list(batch["images"].shape[1:3]),
+                          "images": int(batch["sample_valid"].sum()),
+                          "loss": float(scalars["loss"])})
+            return state, scalars
+        return train_step
+
+    pmain.make_train_step, engine.train_one_epoch = checked, tagged
+    tee = _Tee(sys.stdout)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            best = pmain.main(cfg)
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = read_counts()
+    finally:
+        pmain.make_train_step, engine.train_one_epoch = make, one_epoch
+        hooks.undo()
+    printed = [ln for ln in "".join(tee.kept).splitlines()
+               if ln.startswith("[profile] ")]
+    traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    trace_mib = [os.path.getsize(os.path.join(prof, t)) / 2 ** 20
+                 for t in traces]
+    want_eval = dict({k: 0 for k in DP_TRAIN}, fwd=LAUNCHES_PER_FORWARD,
+                     fwd_tc=LAUNCHES_PER_FORWARD, lsa=1)
+    bad_train = [c for c in hooks.train if c != DP_TRAIN]
+    bad_eval = [c for run in hooks.evals for c in run["launches"]
+                if c != want_eval]
+    n_landed = sum(1 for k, v in landed.items() if k != "_bad")
+
+    # Predictor.from_checkpoint: a batch of 8 fixture images.
+    ck = os.path.join(out, "checkpoint")
+    predictor = Predictor.from_checkpoint(ck, cfg)
+    ds = build_task_dataset(cfg.data, 1, "val", predictor.tokenizer)
+    imgs = [Image.open(os.path.join(ds.img_dir, ds.coco.imgs[i][
+        "file_name"])).convert("RGB") for i in sorted(ds.coco.imgs)[:B]]
+    before = read_counts()
+    t0 = time.perf_counter()
+    dets = predictor(imgs, task_ids=[1] * len(imgs))
+    predict_s = time.perf_counter() - t0
+    pred_fwd = read_counts()["fwd_tc"] - before["fwd_tc"]
+    _check_results(dets, len(imgs), cfg.model.num_queries)
+
+    # visualize of the checkpoint.
+    vis = os.path.join(root, "effnet_vis")
+    n_images = sum(len(build_task_dataset(cfg.data, t, "val",
+                                          predictor.tokenizer))
+                   for t in cfg.data.tasks)
+    vcfg = pmain.parse_args(argv + [f"run.resume={ck}"])
+    t0 = time.perf_counter()
+    n_vis = visualize(vcfg, vis, max_images=VIS_MAX)
+    vis_s = time.perf_counter() - t0
+    pngs = [f for f in os.listdir(vis) if f.endswith(".png")]
+
+    # One f32 eval batch through the kernels against the plain attention.
+    del predictor
+    torch.cuda.empty_cache()
+    f32 = pmain.parse_args(argv + ["model.compute_dtype=float32"])
+    model = TOIST.from_state_dict(ckpt.load_params(ck), f32.model)
+    batch = next(BatchIterator([ds], pmain.build_specs(f32)[1],
+                               batch_size=B, shuffle=False).epoch(0))
+    f32_errs = _f32_kernel_vs_plain("effnet-f32", model, batch)
+    del model
+    torch.cuda.empty_cache()
+
+    # The second epoch's steps: warm (each canvas seen) and untraced.
+    second = [st for st in steps if st["epoch"] == 1]
+    ms = [st["ms"] for st in second]
+    p8 = [st["ms"] for st in phase8["steps"][1:]]
+    res = {"backbone": EFFNET, "train_steps": len(steps),
+           "steps": steps, "step_ms_median": statistics.median(ms),
+           "phase8_step_ms_median": statistics.median(p8),
+           "step_ms_ratio_to_phase8": statistics.median(ms)
+           / statistics.median(p8),
+           "img_s": sum(st["images"] for st in second) / (sum(ms) / 1e3),
+           "traced_step_ms_median": statistics.median(
+               st["ms"] for st in steps if st["epoch"] == 0),
+           "peak_gib": peak, "phase8_peak_gib": phase8["peak_gib"],
+           "pretrained_tensors_landed": n_landed,
+           "pretrained_bad": landed.get("_bad", ["no step"])[:5],
+           "launches": launches,
+           "train_launches_per_step": hooks.train[0] if hooks.train
+           else None, "eval_batches": sum(len(r["launches"])
+                                          for r in hooks.evals),
+           "mean_ap50": best, "main_s": main_s, "profile_lines": printed,
+           "traces": traces, "trace_mib": trace_mib,
+           "predictor": {"images": len(imgs), "forwards_tc": pred_fwd,
+                         "seconds": predict_s},
+           "visualize": {"written": n_vis, "pngs": len(pngs),
+                         "val_images": n_images, "seconds": vis_s},
+           "f32_kernel_vs_plain": f32_errs,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[effnet] {json.dumps(res)} | {smi}")
+    log(f"[effnet] B3 step {res['step_ms_median']:.1f} ms median over the "
+        f"untraced epoch ({res['traced_step_ms_median']:.1f} traced; phase 8, "
+        f"ResNet-101: {res['phase8_step_ms_median']:.1f} ms; ratio "
+        f"{res['step_ms_ratio_to_phase8']:.3f}), {res['img_s']:.2f} img/s, "
+        f"peak {peak:.2f} GiB (phase 8: {phase8['peak_gib']:.2f}) | {smi}")
+    if (bad_train or bad_eval or len(second) < 2 or len(hooks.evals) != 2
+            or landed.get("_bad", ["no step"]) or n_landed < 100
+            or not np.isfinite(best) or len(printed) != 1
+            or len(traces) != 1 or n_vis != min(VIS_MAX, n_images)
+            or len(pngs) != n_vis or pred_fwd % LAUNCHES_PER_FORWARD
+            or not pred_fwd):
+        raise AssertionError(f"phase 15(a) (EfficientNet-B3): "
+                             f"{json.dumps(res)}; bad train "
+                             f"{bad_train[:3]}, bad eval {bad_eval[:3]}")
+    return res
+
+
+def phase_remat(smi, state_dict, root, phase8):
+    """Phase 15(b): model.remat on the flagship (ResNet-101) at batch 6 on
+    832x1344: bf16 steps with and without remat on the same batches (step
+    ms, peak memory, launches), and one f32 step at rate 0.1 with remat
+    against one without on the same generator."""
+    import dataclasses
+
+    import torch
+
+    from toist_tpu_torch.data.batcher import BatchIterator, BucketSpec, \
+        train_buckets
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.parallel import data as dp
+    from toist_tpu_torch.train.criterion import build_weight_dict
+    from toist_tpu_torch.train.state import init_train_state
+    from toist_tpu_torch.train.step import (TRAIN_KEYS, accumulate_gradients,
+                                            batch_to_device, make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = _fixture_config(os.path.join(root, "remat_data"))
+    d = cfg.data
+    tok = build_tokenizer(cfg)
+    spec = BucketSpec(buckets=train_buckets(d.max_size, d.train_scales),
+                      max_text_len=d.max_text_len, max_boxes=d.max_boxes,
+                      num_logit_cols=d.num_logit_cols)
+    it = BatchIterator([build_task_dataset(d, t, "train", tok)
+                        for t in d.tasks], spec, batch_size=TRAIN_B,
+                       seed=cfg.run.seed, num_workers=1)
+    top = (832, 1344)
+    batches = [b for b in it.epoch(0, num_workers=1)
+               if tuple(b["images"].shape[1:3]) == top]
+    while len(batches) < 4:
+        batches += batches
+    batches = batches[:4]
+    wd = build_weight_dict(cfg.loss, False, cfg.model.dec_layers)
+    runs = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat=remat))
+        model = TOIST.from_state_dict(state_dict, c.model)
+        state = init_train_state(model, c, 10, 100)
+        step = make_train_step(c, wd)
+        state, _ = step(state, batches[0])          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, counts = [], []
+        for b in batches[1:]:
+            before = read_counts()
+            t0 = time.perf_counter()
+            state, sc = step(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = read_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+        # What stays between steps, which remat does not touch: the f32
+        # masters, AdamW's moments, the bf16 parameters, all allocations.
+        state_bytes = {
+            "master_bytes": sum(m.numel() * m.element_size()
+                                for p, m in state.masters if m is not p),
+            "moment_bytes": dp.optimizer_state_bytes(state.optimizer),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+            "resident_bytes": torch.cuda.memory_allocated()}
+        peak = torch.cuda.max_memory_allocated()
+        runs[remat] = {"step_ms": ms, "launches": counts,
+                       "peak_gib": peak / 2**30, **state_bytes,
+                       "transient_gib": (peak - state_bytes["resident_bytes"])
+                       / 2**30, "loss": float(sc["loss"])}
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # f32, rate 0.1: remat against no remat, one step's losses and grads.
+    f32 = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat=remat, compute_dtype="float32"))
+        model = TOIST.from_state_dict(state_dict, c.model)
+        state = init_train_state(model, c, 10, 100)
+        x = batch_to_device(batches[1], "cuda", TRAIN_KEYS)
+        sc = accumulate_gradients(state, x, c, wd)
+        names = {id(p): n for n, p in model.named_parameters()}
+        f32[remat] = ({k: float(v) for k, v in sc.items() if v.dim() == 0},
+                      {names[id(p)]: m.grad.detach().clone()
+                       for p, m in state.masters})
+        del model, state
+        torch.cuda.empty_cache()
+    (lr, gr), (ln, gn) = f32[True], f32[False]
+    loss_err = max(abs(lr[k] - ln[k]) / max(abs(ln[k]), 1e-6) for k in ln)
+    top_g = max(g.abs().max().item() for g in gn.values())
+    grad_errs = []
+    for n, g in gn.items():
+        scale = g.abs().max().item()
+        err = (gr[n] - g).abs().max().item()
+        # Tensors whose gradient is rounding noise (0 by construction) are
+        # held to 1e-4 of the largest gradient instead of to their own.
+        grad_errs.append((err / scale if scale > 1e-4 * top_g
+                          else err / top_g * STEP_GRAD_TOL / 1e-4, n))
+    grad_errs.sort()
+    res = {"batch": TRAIN_B, "canvas": list(top),
+           "remat": runs[True], "no_remat": runs[False],
+           "step_ms_ratio": statistics.median(runs[True]["step_ms"])
+           / statistics.median(runs[False]["step_ms"]),
+           "peak_ratio": runs[True]["peak_gib"] / runs[False]["peak_gib"],
+           "phase8_peak_gib": phase8["peak_gib"],
+           "phase8_step_ms_832x1344": sorted(
+               st["ms"] for st in phase8["steps"]
+               if tuple(st["canvas"]) == top),
+           "f32_rate_0.1": {"loss_max_rel_err": loss_err,
+                            "grad_max_rel_err": grad_errs[-1][0],
+                            "worst_grads": grad_errs[-3:],
+                            "losses": {"remat": lr["loss"],
+                                       "no_remat": ln["loss"]}},
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[remat] {json.dumps(res)} | {smi}")
+    log(f"[remat] step ms median {statistics.median(runs[True]['step_ms']):.1f}"
+        f" with remat, {statistics.median(runs[False]['step_ms']):.1f} "
+        f"without (ratio {res['step_ms_ratio']:.3f}); peak "
+        f"{runs[True]['peak_gib']:.2f} GiB with, "
+        f"{runs[False]['peak_gib']:.2f} without (ratio "
+        f"{res['peak_ratio']:.3f}); phase 8's peak {phase8['peak_gib']:.2f} "
+        f"GiB | {smi}")
+    log("[remat] between steps (GiB, with / without remat): " + ", ".join(
+        f"{k} {runs[True][k] / 2**30:.3f} / {runs[False][k] / 2**30:.3f}"
+        for k in ("master_bytes", "moment_bytes", "param_bytes",
+                  "resident_bytes")) + "; above that at the peak "
+        f"{runs[True]['transient_gib']:.3f} / "
+        f"{runs[False]['transient_gib']:.3f} | {smi}")
+    bad = [c for c in runs[True]["launches"] if c != REMAT_TRAIN] + [
+        c for c in runs[False]["launches"] if c != DP_TRAIN]
+    if (bad or loss_err > LOSS_RTOL or grad_errs[-1][0] > STEP_GRAD_TOL
+            or not res["peak_ratio"] < 1.0):
+        raise AssertionError(f"phase 15(b) (remat): {json.dumps(res)}; bad "
+                             f"launches {bad[:3]}")
+    return res
+
+
+def phase_tp(smi, root):
+    """Phase 15(c): tensor parallelism through torchrun, 2 ranks sharing
+    the card on gloo as a (1, 2) ('data', 'model') grid: plain detection at
+    batch 6 per data group, one epoch on phase 14's 2 x 12 fixture, then
+    the eval; then the consolidated checkpoint in this one process on an
+    f32 batch against the TP ranks' f32 forward of the same weights."""
+    import torch
+
+    from toist_tpu_torch import main as pmain
+    from toist_tpu_torch.data.batcher import BatchIterator
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.train import checkpoint as ckpt
+    from toist_tpu_torch.train.step import eval_forward
+
+    t_phase = time.perf_counter()
+    data = os.path.join(root, "dp_small")           # phase 14's fixture
+    sets = [f"data.coco_path={data}",
+            f"data.refexp_ann_path={os.path.join(data, 'annotations')}",
+            "data.tasks=[1,2]", "data.num_workers=4", "optim.epochs=1",
+            "optim.eval_skip=1", "run.shard_opt_state=true",
+            f"optim.train_batch_size={DP_B}", f"optim.valid_batch_size={B}",
+            *TP_SETS]
+    cfg = pmain.parse_args(["--set", *sets])
+    ds = build_task_dataset(cfg.data, 1, "val", build_tokenizer(cfg))
+    f32_batch = next(BatchIterator([ds], pmain.build_specs(cfg)[1],
+                                   batch_size=B, shuffle=False).epoch(0))
+    batch_path = os.path.join(root, "tp_batch.pt")
+    torch.save(f32_batch, batch_path)
+    out = os.path.join(root, "tp")
+    ranks, secs = _dp_run(root, "tp", 2, [
+        "--load", os.path.join(root, "dp_small_weights.pth"), "--set",
+        *sets], extra={"tp_batch": batch_path,
+                       "tp_logits": out + "_logits.pt",
+                       "checkpoint": os.path.join(out, "checkpoint")})
+    summary = _dp_summary(ranks, DP_TRAIN, DP_EVAL, DP_B)
+    got = torch.load(out + "_logits.pt")
+    f32 = pmain.parse_args(["--set", *sets, "model.compute_dtype=float32",
+                            "run.mesh_shape=[-1]", 'run.mesh_axes=["data"]'])
+    model = TOIST.from_state_dict(ckpt.load_params(
+        os.path.join(out, "checkpoint")), f32.model)
+    want, _ = eval_forward(model, f32_batch)
+    errs = {k: (got[k].cuda() - want[k]).abs().max().item()
+            for k in ("pred_logits", "pred_boxes")}
+    del model
+    torch.cuda.empty_cache()
+    ar = [st["tp"] for r in ranks for st in r["steps"]]
+    res = dict(summary, seconds=secs, parts_s=[r["parts_s"] for r in ranks],
+               fwd_shapes=[r["fwd_shapes"] for r in ranks],
+               replicated_equal=len({r["masters_replicated"]
+                                     for r in ranks}) == 1,
+               sharded_elements_per_rank=[r["sharded_numel"] for r in ranks],
+               model_allreduce_per_step=ar[0] if ar else None,
+               tp_vs_one_process_f32=errs,
+               seconds_phase=time.perf_counter() - t_phase)
+    log(f"[tp] (1, 2) grid on gloo: {json.dumps(res)} | {smi}")
+    log(f"[tp] step ms {summary['step_ms_median']:.1f}; model-group "
+        f"all-reduces per step {json.dumps(res['model_allreduce_per_step'])};"
+        f" moments per rank "
+        f"{[round(b / 2**30, 3) for b in summary['moment_bytes_per_rank']]} "
+        f"GiB; f32 TP vs one process {json.dumps(errs)} | {smi}")
+    if (summary["bad_train_launches"] or summary["bad_eval_launches"]
+            or not summary["eval_batches"] or not res["replicated_equal"]
+            or min(summary["steps_per_rank"]) < 1
+            or len(set(summary["steps_per_rank"])) != 1
+            or any(s != [[4, 128]] for s in res["fwd_shapes"])
+            or max(errs.values()) > SLICE_TOL
+            or summary["backend"] != "gloo"):
+        raise AssertionError(f"phase 15(c) (tensor parallel): "
+                             f"{json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.getcwd())
@@ -3097,6 +3672,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         dp = phase_dp(smi, root)
+        torch.cuda.empty_cache()
+        tp = phase_tp(smi, root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        effnet = phase_effnet(smi, root, train)
+        torch.cuda.empty_cache()
+        remat = phase_remat(smi, state_dict, root, train)
+    torch.cuda.empty_cache()
 
     serve = times["serving_encoder"]["bfloat16"][0.0]
     serve32 = times["serving_encoder"]["float32"][0.0]
@@ -3121,6 +3704,28 @@ def main() -> int:
             for run, s in [("a", dp["a"])] + [(f"b_{k}", v) for k, v in
                                              dp["b"].items()]}}
 
+    def p15_counts(kind):
+        # Phase 15: launches per train step of the EfficientNet-B3 run (a),
+        # with remat (b; 6 encoder forwards recomputed) and of each
+        # tensor-parallel rank (c; on its 4 heads).
+        return {"effnet_launches_per_step":
+                effnet["train_launches_per_step"][kind],
+                "remat_launches_per_step": remat["remat"]["launches"][0][kind],
+                "tp_launches_per_step":
+                tp["train_launches_per_step"][kind]}
+
+    def tp_times(kind):
+        # The TP-local shapes [6, 1156, 128] (4 heads) and the decoder
+        # cross [6, 100, 128] over 1156 keys, bf16, rate 0.
+        out = {}
+        for name in ("tp_train_encoder", "tp_train_decoder_cross"):
+            t = times[name]["bfloat16"][0.0]
+            lib = "library_fwd" if kind == "fwd" else "library_bwd"
+            out[name] = {"ms": t[kind], "plain_ms": t[
+                "plain_fwd" if kind == "fwd" else "plain_bwd"],
+                "library_ms": t[lib], **bound(t, kind)}
+        return {"tp_shapes": out}
+
     def seg_counts(kind):
         # Phase 13: launches over its training steps and its eval batches.
         return {"seg_launches": seg["train_launches"][kind],
@@ -3143,6 +3748,8 @@ def main() -> int:
         "distill_eval_launches": distill["eval_tc_launches"],
         **seg_counts("fwd_tc"),
         **dp_counts("fwd_tc"),
+        **p15_counts("fwd_tc"),
+        **tp_times("fwd"),
         "max_abs_err": max(c["max_abs_err"] for c in cases
                            if c["dtype"] == "bfloat16"),
         "ms": serve["fwd"],
@@ -3176,6 +3783,7 @@ def main() -> int:
         "distill_launches": dl["dropout"],
         **seg_counts("dropout"),
         **dp_counts("dropout"),
+        **p15_counts("dropout"),
         "max_abs_err": max(c["max_abs_err"] for c in attn if c["rate"]),
         # The tensor-core forward at rate 0.1, and what the rate adds to
         # each of the three kernels (bf16, training encoder shape).
@@ -3194,6 +3802,8 @@ def main() -> int:
         "distill_launches": dl["dkv_tc"],
         **seg_counts("dkv_tc"),
         **dp_counts("dkv_tc"),
+        **p15_counts("dkv_tc"),
+        **tp_times("dkv"),
         "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dkv"],
         "ms_rate_0.1": enc[DROP_RATE]["dkv"],
@@ -3216,6 +3826,8 @@ def main() -> int:
         "distill_launches": dl["dq_tc"],
         **seg_counts("dq_tc"),
         **dp_counts("dq_tc"),
+        **p15_counts("dq_tc"),
+        **tp_times("dq"),
         "max_abs_err": max(c["max_abs_err"] for c in bf16_attn),
         "ms": enc[0.0]["dq"],
         "ms_rate_0.1": enc[DROP_RATE]["dq"],
@@ -3236,6 +3848,7 @@ def main() -> int:
         "distill_launches": dl["lsa"],
         **seg_counts("lsa"),
         **dp_counts("lsa"),
+        **p15_counts("lsa"),
         "max_abs_err": 0,
         "ms": lsa_main["ms"],
         "plain_ms": lsa_main["plain_ms"],
@@ -3262,7 +3875,20 @@ def main() -> int:
             "mask_ap50", "checkpoints",
             "train_launches", "eval_launches", "profile", "dis",
             "f32_kernel_vs_plain", "predictor")},
-        "ablation": ablation, "dp": dp}
+        "ablation": ablation, "dp": dp,
+        "effnet": {k: effnet[k] for k in (
+            "backbone", "step_ms_median", "traced_step_ms_median",
+            "phase8_step_ms_median",
+            "step_ms_ratio_to_phase8", "img_s", "peak_gib",
+            "pretrained_tensors_landed", "mean_ap50", "profile_lines",
+            "trace_mib", "predictor", "visualize", "f32_kernel_vs_plain",
+            "seconds")},
+        "remat": remat,
+        "tp": {k: tp[k] for k in (
+            "step_ms_median", "model_allreduce_per_step",
+            "moment_bytes_per_rank", "sharded_elements_per_rank",
+            "tp_vs_one_process_f32", "fwd_shapes", "parts_s",
+            "seconds_phase")}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

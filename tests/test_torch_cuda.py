@@ -531,3 +531,27 @@ def test_frozen_detector_step_launches_no_attention_backward(cuda):
     for n, p in model.named_parameters():
         if n not in masters:
             assert torch.equal(p, before[n]), n
+
+
+@pytest.mark.parametrize("fused", ["off", "auto"])
+def test_fused_attention_off_routes_around_the_kernels(cuda, tmp_path,
+                                                       fused):
+    """model.fused_attention="off" on the card: no kernel launch, the
+    plain version throughout; "auto": the kernels (2 encoder self- and 2
+    decoder cross-attentions per forward)."""
+    import dataclasses
+
+    from toist_tpu_torch.models.toist import TOIST
+    from toist_tpu_torch.train.step import eval_forward
+
+    cfg, sets, spec, sd = _tiny_eval_setup(tmp_path, "bfloat16")
+    mcfg = dataclasses.replace(cfg.model, fused_attention=fused)
+    model = TOIST.from_state_dict(sd, mcfg, device="cuda")
+    from toist_tpu_torch.data.batcher import BatchIterator
+    batch = next(BatchIterator([sets[1]], spec, batch_size=2,
+                               shuffle=False).epoch(0))
+    before = flash_attention.launches
+    out, _ = eval_forward(model, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out["pred_logits"]).all()
+    assert flash_attention.launches - before == (0 if fused == "off" else 4)

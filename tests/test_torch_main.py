@@ -9,8 +9,8 @@ the command line) gives the last in-run eval's per-task stats exactly, and
 ``--eval --load`` of the last checkpoint gives its detections bit for bit
 (a random model's AP at this size is mostly 0, so the detections are what
 shows that the same weights came back).
-``parse_args`` gives the JAX ``parse_args``'s config on the same argv; each
-mode that the port does not run yet raises. Distillation with softkd,
+``parse_args`` gives the JAX ``parse_args``'s config on the same argv; a
+('data', 'model') grid, ``run.profile_dir`` and the pretrained files run. Distillation with softkd,
 nsthl2 and the cluster bank, its teacher through ``run.load_noun``: one
 epoch writes the distillation checkpoint and evaluates with the cluster
 snapping; ``--eval --resume`` restores the state bit for bit and gives the
@@ -171,22 +171,83 @@ def test_parse_args_matches_jax(argv):
     assert parse_args(argv).to_dict() == jmain.parse_args(argv).to_dict()
 
 
+def _pretrained_file(path, cfg, prefix, seed):
+    """A random state dict of the model's ``prefix`` part in the upstream
+    layout (torchvision / Hugging Face names, with a classifier head or
+    HF's position_ids buffer beside), as a bare ``.pth``."""
+    from toist_tpu_torch.models.toist import TOIST
+
+    with torch.device("meta"):
+        model = TOIST(cfg.model, text_vocab_size=build_tokenizer(
+            cfg).vocab_size)
+    g = torch.Generator().manual_seed(seed)
+    sd = {k[len(prefix):]: torch.rand(v.shape, generator=g) + 0.5
+          for k, v in model.state_dict().items() if k.startswith(prefix)}
+    if prefix.startswith("backbone"):
+        sd["fc.weight"] = torch.zeros(1000, 2048)
+    else:
+        sd["embeddings.position_ids"] = torch.arange(514)[None]
+    torch.save(sd, path)
+    return sd
+
+
 @pytest.mark.parametrize("mode", [
     ("run", "mesh_axes", ["data", "model"]), ("run", "profile_dir", "trace"),
     ("run", "pretrained_backbone", "r101.pth"),
     ("run", "pretrained_text", "roberta.pth"), ("run", "mesh_shape", [2])])
-def test_unported_modes_raise(mode):
-    """A mode the port does not run yet raises NotImplementedError naming
-    its ROADMAP item; a mesh of 2 devices in one process raises
-    ValueError, as JAX's make_mesh does."""
+def test_unported_modes_raise(tmp_path, monkeypatch, capsys, mode):
+    """The modes that raised NotImplementedError until the port ran them
+    now run on the CPU: a ('data', 'model') grid of (1, 1) in one process
+    evaluates; ``run.profile_dir`` writes a trace of the first
+    epoch and prints its ``[profile]`` line; the pretrained files land in
+    the model that evaluates. A mesh of 2 devices in one process still
+    raises ValueError, as JAX's make_mesh does."""
+    import toist_tpu_torch.main as pmain
+    from toist_tpu_torch.utils import pretrained as ppre
+
     sec, key, val = mode
-    over = {sec: {key: val}}
     if key == "mesh_shape":
         with pytest.raises(ValueError, match="needs 2 devices, have 1"):
-            main(Config.from_sources(None, over), device="cpu")
+            main(Config.from_sources(None, {sec: {key: val}}), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-        main(Config.from_sources(None, over), device="cpu")
+    root = generate_fixture(str(tmp_path / "data"), num_tasks=2,
+                            imgs_per_split=2, img_size=(96, 128), seed=1)
+    out = str(tmp_path / "out")
+    over = _overrides(root, out, "frozen_bn")
+    over["optim"]["epochs"] = 1
+    if key == "mesh_axes":
+        over["run"].update(mesh_axes=val, mesh_shape=[1, 1],
+                           eval_only=True)
+    elif key == "profile_dir":
+        over["run"]["profile_dir"] = str(tmp_path / val)
+    else:
+        over["run"].update(eval_only=True, output_dir="")
+        over["run"][key] = str(tmp_path / val)
+    cfg = Config.from_sources(None, over)
+    want = None
+    if key.startswith("pretrained"):
+        prefix = ppre.BACKBONE if key.endswith("backbone") else ppre.TEXT
+        want = _pretrained_file(str(tmp_path / val), cfg, prefix, seed=2)
+    models, make = [], pmain.make_eval_step
+
+    def keeping(model, cfg, weight_dict):
+        models.append(model)
+        return make(model, cfg, weight_dict)
+    monkeypatch.setattr(pmain, "make_eval_step", keeping)
+    m = main(cfg, device="cpu")
+    assert np.isfinite(m)
+    if key == "mesh_axes":
+        assert [r["kind"] for r in _log(out)] == ["eval"]
+    elif key == "profile_dir":
+        traces = os.listdir(str(tmp_path / val))
+        assert len(traces) == 1 and traces[0].endswith(".json.gz")
+        assert "[profile] " in capsys.readouterr().out
+    else:
+        sd = models[0].state_dict()
+        for k, v in want.items():
+            if prefix + k in sd:
+                assert torch.equal(sd[prefix + k], v), k
+        assert sum(prefix + k in sd for k in want) == len(want) - 1
 
 
 def test_distillation_main_trains_and_resumes(tmp_path, monkeypatch):
@@ -331,3 +392,20 @@ def test_segmentation_main_from_a_detection_checkpoint(tmp_path, cluster):
     [again] = _log(str(tmp_path / "eval"))
     assert again["per_task"] == ev["per_task"]
     assert again["map@0.5_masks"] == ev["map@0.5_masks"]
+
+
+def test_device_memory_stats_without_a_card(monkeypatch):
+    """``utils/profiling.device_memory_stats``: {} without a card, and per
+    card its live and peak bytes (read through torch.cuda) with one."""
+    from toist_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profiling.device_memory_stats() == {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda i: 10 + i)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda i: 20 + i)
+    assert profiling.device_memory_stats() == {
+        f"cuda:{i}": {"bytes_in_use": 10 + i, "peak_bytes_in_use": 20 + i}
+        for i in (0, 1)}
+

@@ -234,3 +234,34 @@ def test_init_like_jax_matches_flax_distributions():
         tol = 0.1 * sd + 3 * sd * (2.0 / n) ** 0.5
         assert abs(g.mean().item() - w.mean().item()) <= tol, name
         assert abs(g.std().item() - sd) <= tol, name
+
+
+@pytest.mark.parametrize("fused", ["off", "auto", "on", "interpret"])
+def test_fused_attention_routing(tiny_pair, fused, monkeypatch):
+    """model.fused_attention: "off" routes every attention through the
+    plain version (no call of the kernels' wrapper, on any device); "auto",
+    "on" and "interpret" call the wrapper for the 2 encoder self- and 2
+    decoder cross-attentions (S >= FUSED_MIN_KV), which takes the plain
+    version for CPU tensors. The outputs are the same."""
+    import toist_tpu_torch.models.layers as layers
+
+    port, _, _, batch = tiny_pair
+    calls, wrapper = [0], layers.flash_attention
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return wrapper(*a, **kw)
+    monkeypatch.setattr(layers, "flash_attention", counted)
+    cfg = dataclasses.replace(PTINY, fused_attention=fused)
+    model = TOIST.from_state_dict(port.state_dict(), cfg, device="cpu")
+    args = [torch.from_numpy(batch[k]) for k in ("images", "image_mask",
+                                                 "text_ids", "text_mask")]
+    with torch.inference_mode():
+        out, _ = model(*args)
+        n = calls[0]
+        want, _ = port(*args)
+    assert n == (0 if fused == "off" else 4)
+    assert all(m.fused == (fused != "off") for m in model.modules()
+               if isinstance(m, layers.MultiheadAttention))
+    np.testing.assert_array_equal(out["pred_logits"].numpy(),
+                                  want["pred_logits"].numpy())

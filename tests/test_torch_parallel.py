@@ -47,6 +47,7 @@ from toist_tpu_torch.parallel import data as dp
 from toist_tpu_torch.train import criterion as pcrit
 from toist_tpu_torch.train.state import init_train_state
 from toist_tpu_torch.train.step import dropout_generator, make_train_step
+from toist_tpu_torch.utils import dist
 from toist_tpu_torch.utils.convert import jax_params_to_state_dict
 
 TINY1 = ModelConfig(backbone="resnet18-test", hidden_dim=64, nheads=4,
@@ -282,9 +283,15 @@ def test_jax_shards_yield_uneven_batch_counts():
 
 
 def test_make_mesh_in_one_process():
-    assert dp.make_mesh((-1,)) == dp.make_mesh((1,)) == 1
+    """One process: ('data',) and ('data', 'model') grids of (1, 1); a
+    shape that needs 2 devices raises ValueError on either axis."""
+    for shape, axes in (((-1,), ("data",)), ((1,), ("data",)),
+                        ((-1, 1), ("data", "model")),
+                        ((1, 1), ("data", "model"))):
+        g = dp.make_mesh(shape, axes)
+        assert (g.dp, g.tp, g.data_index, g.model_index) == (1, 1, 0, 0)
+        assert g == dist.grid()
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         dp.make_mesh((2,))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue A item {dp.TP_ROADMAP_ITEM}"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         dp.make_mesh((-1, 2), ("data", "model"))

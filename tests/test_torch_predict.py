@@ -183,3 +183,37 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                               text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("prefer_ema", [True, False], ids=["ema", "model"])
+def test_from_checkpoint(predictors, tmp_path, prefer_ema):
+    """``Predictor.from_checkpoint`` of a reference-format file equals
+    ``from_state_dict`` on the same weights (the EMA's when preferred and
+    present), and JAX's Predictor on the weights that its
+    ``load_reference_checkpoint`` reads from the same file."""
+    from toist_tpu.utils.convert import load_reference_checkpoint
+
+    jax_pred, port = predictors
+    sd = port.model.state_dict()
+    ema = {k: v + 0.01 if v.is_floating_point() else v for k, v in sd.items()}
+    path = str(tmp_path / "checkpoint")
+    torch.save({"model": sd, "model_ema": ema, "epoch": 0}, path)
+    pcfg = port.cfg
+    got = Predictor.from_checkpoint(path, pcfg, tokenizer=port.tokenizer,
+                                    prefer_ema=prefer_ema, device="cpu")
+    want_sd = ema if prefer_ema else sd
+    same = Predictor.from_state_dict(want_sd, pcfg, device="cpu",
+                                     tokenizer=port.tokenizer)
+    params, frozen = load_reference_checkpoint(
+        path, prefer_ema=prefer_ema, d_model=64, enc_layers=1, dec_layers=1,
+        stage_sizes=(1, 1, 1, 1))
+    jp = JaxPredictor(jax_pred.model, params, frozen, port.tokenizer,
+                      jax_pred.cfg)
+    rng = np.random.default_rng(1)
+    imgs = [Image.fromarray(rng.integers(0, 255, (120, 160, 3), np.uint8))]
+    a, b, w = got(imgs, [2]), same(imgs, [2]), jp(imgs, [2])
+    for k in ("boxes", "scores", "labels"):
+        np.testing.assert_array_equal(a[0][k], b[0][k])
+    np.testing.assert_allclose(a[0]["scores"], w[0]["scores"], atol=TOL)
+    np.testing.assert_allclose(a[0]["boxes"], w[0]["boxes"],
+                               atol=TOL * 160, rtol=TOL)

@@ -52,7 +52,8 @@ from toist_tpu_torch.utils import logging as plogging
 from toist_tpu_torch.utils import tensorboard as ptensorboard
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "toist_tpu")
+# cv2 is not on the card's machine: visualize draws with numpy and PIL.
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "toist_tpu", "cv2")
 
 # The unicode cases of tests/test_tokenizer_parity.py.
 UNICODE_TEXTS = [
@@ -104,15 +105,28 @@ def test_port_imports_nothing_of_jax(what):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 30      # every module was walked
+    # ... and no import of cv2 hides inside a function.
+    pkg = os.path.join(REPO, "toist_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    src = fh.read()
+                assert "import cv2" not in src and "from cv2" not in src, f
 
 
-@pytest.mark.parametrize("owner", ["Predictor", "TOIST"])
+@pytest.mark.parametrize("owner", ["Predictor", "TOIST",
+                                   "Predictor.from_checkpoint", "visualize"])
 def test_from_state_dict_defaults_to_the_card(owner):
     from toist_tpu_torch.models.toist import TOIST
     from toist_tpu_torch.predict import Predictor
+    from toist_tpu_torch.visualize import visualize
 
-    cls = {"Predictor": Predictor, "TOIST": TOIST}[owner]
-    sig = inspect.signature(cls.from_state_dict)
+    fn = {"Predictor": Predictor.from_state_dict,
+          "TOIST": TOIST.from_state_dict,
+          "Predictor.from_checkpoint": Predictor.from_checkpoint,
+          "visualize": visualize}[owner]
+    sig = inspect.signature(fn)
     assert sig.parameters["device"].default == "cuda"
 
 

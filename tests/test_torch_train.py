@@ -387,14 +387,13 @@ def _partner(name):
             else name[:-len("bias")] + "weight")
 
 
-def test_tiny_train_step_matches_jax(tiny):
+def _check_step_against_jax(sd, params, frozen, jmodel_cfg, pmodel_cfg):
     """One training step of the tiny model, port vs JAX: losses, the
     gradient of every trainable parameter, the parameters after AdamW."""
-    sd, params, frozen = tiny
-    cfg = Config(model=TINY)
+    cfg = Config(model=jmodel_cfg)
     wd = jcrit.build_weight_dict(cfg.loss, False, 2)
     batch = _tiny_batch()
-    jmodel = build_model(TINY, text_vocab_size=600, tiny_text=True,
+    jmodel = build_model(jmodel_cfg, text_vocab_size=600, tiny_text=True,
                          backbone_norm="frozen_bn")
 
     def jloss(p, b):
@@ -413,7 +412,7 @@ def test_tiny_train_step_matches_jax(tiny):
     jnew = jax_params_to_state_dict(optax.apply_updates(params, upd), frozen)
     jgrads = jax_params_to_state_dict(jg, frozen)
 
-    pcfg = pconfig.Config(model=PTINY)
+    pcfg = pconfig.Config(model=pmodel_cfg)
     state = _port_state(sd, pcfg)
     scalars = accumulate_gradients(state, {k: _t(v) for k, v in
                                            batch.items()}, pcfg, wd)
@@ -446,6 +445,50 @@ def test_tiny_train_step_matches_jax(tiny):
         np.testing.assert_allclose(p.detach().numpy(), jnew[n].numpy(),
                                    atol=2 * lr, err_msg=n)
     assert state.step == 1 and bool(sc["loss_is_finite"])
+
+
+def test_tiny_train_step_matches_jax(tiny):
+    _check_step_against_jax(*tiny, TINY, PTINY)
+
+
+def test_remat_step_matches_jax(tiny):
+    """model.remat (the bottlenecks and encoder layers recomputed in the
+    backward) against JAX's step with remat=True, at rate 0."""
+    _check_step_against_jax(*tiny, dataclasses.replace(TINY, remat=True),
+                            dataclasses.replace(PTINY, remat=True))
+
+
+def test_remat_equals_no_remat_at_rate_01(tiny, monkeypatch):
+    """At dropout 0.1 the step's generator is put back for each
+    recomputed block: with remat the losses and every gradient equal the
+    step without, bit for bit on the CPU (and the encoder layers did run
+    twice: forward and recomputation)."""
+    from toist_tpu_torch.models.joint_transformer import EncoderLayer
+
+    calls, forward = [0], EncoderLayer.forward
+
+    def counted(self, *a, **kw):
+        calls[0] += 1
+        return forward(self, *a, **kw)
+    monkeypatch.setattr(EncoderLayer, "forward", counted)
+    batch = {k: _t(v) for k, v in _tiny_batch().items()}
+    got = []
+    for remat in (False, True):
+        cfg = pconfig.Config(model=dataclasses.replace(
+            PTINY, dropout=0.1, resizer_dropout=0.1, remat=remat))
+        wd = pcrit.build_weight_dict(cfg.loss, False, 2)
+        state = _port_state(tiny[0], cfg)
+        calls[0] = 0
+        sc = accumulate_gradients(state, batch, cfg, wd)
+        got.append((sc, [m.grad.clone() for _, m in state.masters],
+                    calls[0]))
+    (sc0, g0, n0), (sc1, g1, n1) = got
+    assert (n0, n1) == (2, 4)
+    assert {k: float(v) for k, v in sc0.items()} == \
+        {k: float(v) for k, v in sc1.items()}
+    assert len(g0) == len(g1) > 0
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
 
 
 def test_grad_accumulation_equals_full_batch(tiny):

@@ -1,4 +1,4 @@
-"""Ranks for the port's data-parallel tests on the CPU (gloo).
+"""Ranks for the port's data- and tensor-parallel tests on the CPU (gloo).
 
 ``Ranks(case, workdir)`` starts one Python process per rank with the
 environment torchrun gives its ranks (``RANK``, ``WORLD_SIZE``,
@@ -247,7 +247,79 @@ def case_eval_merge(inp) -> Dict[str, Any]:
     return {"stats": ev.summarize(), "records": len(ev.dt_records)}
 
 
-CASES = {"steps": case_steps, "eval_merge": case_eval_merge}
+def _data_rows(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """This rank's data group's rows of a global batch."""
+    d, n_data = dist.data_index(), dist.data_count()
+    n = next(iter(batch.values())).shape[0] // n_data
+    return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+
+
+def _tp_state(sd, cfg):
+    from toist_tpu_torch.parallel import tp
+    model = TOIST.from_state_dict(
+        {k: torch.from_numpy(v) for k, v in sd.items()}, cfg.model,
+        device="cpu")
+    if dist.model_count() > 1:
+        tp.shard_model(model, (dist.model_index(), dist.model_count()))
+    state = init_train_state(model, cfg, 10, 100)
+    dp.replicate(state)
+    return state
+
+
+def case_tp(inp) -> Dict[str, Any]:
+    """A ('data', 'model') grid of inp["grid"]: one step at rate 0 (whole
+    masters, gathered, and scalars), one at rate 0.1 (each rank's own
+    masters: the replicated ones must agree over the model group), two
+    steps with ZeRO-1 on and off, and a checkpoint written by rank 0 and
+    restored into the grid."""
+    from toist_tpu_torch.parallel import tp
+    from toist_tpu_torch.train import checkpoint as ckpt
+
+    dp.make_mesh(inp["grid"], ("data", "model"))
+    cfg, wd, sd = inp["cfg"], inp["wd"], inp["sd"]
+    local = _data_rows(inp["batch"])
+    out: Dict[str, Any] = {"grid": (dist.data_index(), dist.model_index())}
+
+    def whole(state):
+        return {k: _np(v) for k, v in ckpt.whole_state_dict(state).items()}
+
+    state = _tp_state(sd, cfg)
+    tp.reset_counts()
+    state, sc = make_train_step(cfg, wd)(state, local)
+    out["step"] = {"scalars": _scalars(sc), "masters": whole(state),
+                   "counts": dict(tp.COUNTS),
+                   "sharded": sorted(tp.specs_of(state.model))}
+
+    drop = _replace(cfg, model={"dropout": 0.1, "resizer_dropout": 0.1})
+    state = _tp_state(sd, drop)
+    state, _ = make_train_step(drop, wd)(state, local)
+    out["dropout"] = {"masters": _masters(state),
+                      "sharded": sorted(tp.specs_of(state.model))}
+
+    out["zero"] = {}
+    for zero1 in (True, False):
+        c = _replace(cfg, run={"shard_opt_state": zero1})
+        state, step = _tp_state(sd, c), make_train_step(c, wd)
+        for _ in range(2):
+            state, _ = step(state, local)
+        out["zero"][zero1] = {"masters": whole(state),
+                              "zero1": hasattr(state.optimizer, "optim"),
+                              "bytes": dp.optimizer_state_bytes(
+                                  state.optimizer)}
+    path = os.path.join(inp["workdir"], f"tp_{inp['grid'][0]}x"
+                        f"{inp['grid'][1]}.pth")
+    ckpt.save(path, state, epoch=0, args={})
+    mine = _masters(state)
+    torch.distributed.barrier()
+    back, _ = ckpt.restore(path, c, 10, 100, device="cpu")
+    out["ckpt"] = {"path": path, "masters": whole(state),
+                   "restored_equal": all(
+                       np.array_equal(v, _masters(back)[k])
+                       for k, v in mine.items())}
+    return out
+
+
+CASES = {"steps": case_steps, "eval_merge": case_eval_merge, "tp": case_tp}
 
 
 def _run_rank(case: str, workdir: str) -> None:

@@ -63,31 +63,31 @@ class ModelConfig:
     mask_model: str = "none"             # --mask_model {none,smallconv} (main.py:164-169)
     masks: bool = False                  # derived: mask_model != none => True (main.py:297-298)
     frozen_detector: bool = False        # seg training freezes wrapped detector
-    # TPU additions (no reference counterpart): compute dtype policy and
-    # rematerialization (jax.checkpoint on backbone blocks + encoder layers).
-    # NB measured on v5e at 800x1344: remat=False trains batch 16 in 15.75GB
-    # while remat=True OOMs at 25GB — XLA:TPU's automatic rematerialization
-    # beats this manual policy, so the flag stays off by default; retained for
-    # experimentation on other shapes.
-    compute_dtype: str = "bfloat16"      # activations/matmul dtype on TPU
+    # Additions without a reference counterpart: the compute dtype policy and
+    # rematerialization (torch.utils.checkpoint on the backbone blocks and the
+    # encoder layers, the dropout generator restored for the recomputation).
+    # It trades a second forward of those blocks for activation memory; its
+    # step ms and peak memory on the H100 are in PERF.md (chip_smoke.py phase
+    # 15(b)). Off by default, as in the JAX package.
+    compute_dtype: str = "bfloat16"      # activations/matmul dtype
     param_dtype: str = "float32"
     remat: bool = False
-    # Fused (flash-style) Pallas attention for the joint encoder self-attn and
-    # decoder cross-attn (ops/flash_attention.py). "auto" = on for TPU
-    # backends, off on CPU (Mosaic kernels don't compile there); "interpret"
-    # runs the kernel in the Pallas interpreter (CPU testing).
+    # Fused (flash-style) attention for the joint encoder self-attn and
+    # decoder cross-attn (ops/flash_attention.py). "auto", "on" and
+    # "interpret": the CUDA kernels for CUDA tensors, the plain version for
+    # CPU tensors; "off": the plain version on any device.
     fused_attention: str = "auto"        # auto | on | off | interpret
-    # Mask-head layout. "flat" is the reference shape ([B*N, h, w, c]); its
-    # 16/32-channel tensors underfill v5e's 128-wide lanes and cost ~10.6ms
-    # of layout copies per 51.4ms seg-train step — so "folded"
-    # (MaskHeadSmallConvFolded: query axis folded into channels, N*16 >= 400
-    # lanes, FPN adapters + lay1's shared half computed once per image; same
-    # params and math, equivalence tested) was built and MEASURED as the fix.
-    # Measured rejection (v5e, 832x1344): both folded lowerings LOSE —
-    # XLA serializes the 25-group conv (grouped: 141.4ms/step at batch 2 vs
-    # flat 51.4ms) and the shifted-matmul form pays 9x reads at K=16 (shifts:
-    # 338.8ms at batch 8 vs flat 133.5ms, 7.1% vs 19.6% device MFU). Kept as
-    # an option because the lowering economics differ per backend/generation.
+    # Mask-head layout. "flat" is the reference shape ([B*N, h, w, c]). The
+    # JAX package also keeps "folded" (MaskHeadSmallConvFolded: the query
+    # axis folded into channels, the FPN adapters and lay1's shared half
+    # computed once per image) and "folded_shifts" (the 3x3 convs as
+    # shifted matmuls), built for the TPU's lane width; they hold the same
+    # parameters and compute the same function (tests/test_segmentation.py).
+    # The port builds the flat head for every layout (models/segmentation
+    # .py), so a folded checkpoint loads into it unchanged, and the option
+    # stays so that a JAX configuration parses unchanged. No layout's time
+    # on the H100 is measured; the flat head's share of a seg step is in
+    # PERF.md (chip_smoke.py phase 13).
     mask_head_layout: str = "flat"       # flat | folded | folded_shifts
 
 
@@ -239,15 +239,15 @@ class RunConfig:
     mesh_shape: Tuple[int, ...] = (-1,)  # -1 = remaining devices on that axis
     mesh_axes: Tuple[str, ...] = ("data",)
     shard_opt_state: bool = True         # ZeRO-1-style optimizer sharding over 'data'
-    # Dropout-mask PRNG. "rbg" (XLA RngBitGenerator) generates the big
-    # attention-probs dropout masks ~13x faster than threefry on TPU — the
-    # train forward drops 149.8ms -> 39.4ms at the flagship batch-6 832x1344
-    # shape (measured v5e). rbg is deterministic for a given key on a given
-    # backend but not bitwise-stable across backends/compiler versions; set
-    # "threefry2x32" for exact cross-platform reproducibility.
+    # Dropout-mask PRNG of the JAX package: "rbg" (XLA's RngBitGenerator)
+    # or "threefry2x32". The port draws its masks from the step's
+    # torch.Generator and the kernels' hash (ops/flash_attention.py): it
+    # parses this option and does not read it, as it does
+    # run.compile_cache_dir (the JAX package's TPU-only options, ROADMAP
+    # queue A item 8).
     dropout_rng_impl: str = "rbg"
-    # Background (async) orbax checkpoint commits: the epoch loop hands the
-    # ~2GB state to orbax's writer thread instead of blocking on disk.
+    # Background (async) checkpoint writes: the epoch loop hands the host
+    # copy of the state to one writer thread (train/checkpoint.py).
     async_checkpoint: bool = True
     # Persistent XLA compilation cache directory ('' = ~/.cache/toist_tpu/
     # xla_cache; env TOIST_COMPILE_CACHE=off disables). Amortizes the train

@@ -83,7 +83,7 @@ def train_buckets(max_size: int = 1333,
     portrait). `BucketSpec.pick` chooses the smallest-area fit.
 
     Compile-count budget: 8 canvases => at most 8 train-step compilations per
-    process (~30s each on TPU, paid once per run; XLA caches by shape).
+    process in the JAX package (XLA caches by shape; the port compiles none).
     Typical padding waste drops from ~3.6x to <=1.3x on 4:3 inputs.
 
     The top rung is derived from max(scales): with the default 480..800

@@ -33,9 +33,14 @@ rank, the reference's per-GPU batches, ``toist_tpu/main.py:160-186``): the
 losses and gradients are the global batch's, ZeRO-1 shards the optimizer
 state with ``run.shard_opt_state``, the eval is host-sharded and merged,
 and rank 0 alone writes ``log.jsonl``, TensorBoard and the checkpoints.
-Modes of the JAX ``main`` that this port does not run yet (a 'model' mesh
-axis, ``run.profile_dir``, the pretrained converters) raise
-``NotImplementedError`` naming their ROADMAP item.
+With ``run.mesh_shape=[-1, tp]`` and ``run.mesh_axes=["data", "model"]``
+the ranks form a (dp, tp) grid (``parallel/data.make_mesh``): each model
+group of tp ranks holds one replica sharded by ``parallel/tp.py`` and runs
+its data group's batches. ``run.pretrained_backbone`` /
+``run.pretrained_text`` load torchvision, timm or Hugging Face files into
+a fresh model (``utils/pretrained.py``), before ``--load`` and
+``--resume``; ``run.profile_dir`` traces the first epoch
+(``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from toist_tpu_torch.eval.evaluator import mean_ap50
 from toist_tpu_torch.models.init import init_like_jax
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.parallel import data as dp
+from toist_tpu_torch.parallel import tp
 from toist_tpu_torch.train import checkpoint as ckpt
 from toist_tpu_torch.train import engine
 from toist_tpu_torch.train.cluster import init_bank
@@ -68,6 +74,8 @@ from toist_tpu_torch.train.state import init_train_state, load_masters
 from toist_tpu_torch.train.step import make_eval_step, make_train_step
 from toist_tpu_torch.utils import dist
 from toist_tpu_torch.utils.logging import JsonlLogger
+from toist_tpu_torch.utils.pretrained import apply_pretrained
+from toist_tpu_torch.utils.profiling import trace
 from toist_tpu_torch.utils.tensorboard import SummaryWriter
 
 
@@ -96,20 +104,6 @@ def build_specs(cfg: Config):
     return train_spec, eval_spec
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise on a configuration that the JAX ``main`` runs and the port
-    does not run yet (a 'model' mesh axis raises in ``dp.make_mesh``)."""
-    unported = [
-        (bool(cfg.run.profile_dir), "run.profile_dir (torch.profiler)", 8),
-        (bool(cfg.run.pretrained_backbone), "run.pretrained_backbone", 10),
-        (bool(cfg.run.pretrained_text), "run.pretrained_text", 10)]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to toist_tpu_torch: ROADMAP queue A "
-                f"item {item}")
-
-
 def git_sha() -> str:
     """Best-effort git stamp (reference util/misc.py:19-37, main.py:294)."""
     import subprocess
@@ -134,8 +128,8 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
 
 
 def _main(cfg: Config, device: torch.device) -> Optional[float]:
-    check_ported(cfg)
-    dp.make_mesh(cfg.run.mesh_shape, cfg.run.mesh_axes)
+    grid = dp.make_mesh(cfg.run.mesh_shape, cfg.run.mesh_axes)
+    shard = (grid.model_index, grid.tp)
     print(f"toist_tpu_torch git sha: {git_sha()}", flush=True)
     tokenizer = build_tokenizer(cfg)
     train_spec, eval_spec = build_specs(cfg)
@@ -158,15 +152,16 @@ def _main(cfg: Config, device: torch.device) -> Optional[float]:
     if train_sets:
         # With gradient accumulation the step consumes accum * B samples and
         # applies one optimizer update, so the iterator batches (and hence
-        # steps_per_epoch / the LR schedules) scale accordingly. Each rank
-        # takes its shard (the reference's DistributedSampler, main.py:409);
-        # len() is the same on every rank, and so are the schedules.
+        # steps_per_epoch / the LR schedules) scale accordingly. Each data
+        # group takes its shard (the reference's DistributedSampler,
+        # main.py:409); len() is the same on every rank, and so are the
+        # schedules.
         train_iter = BatchIterator(
             train_sets, train_spec,
             batch_size=(cfg.optim.train_batch_size
                         * cfg.optim.grad_accum_steps),
             seed=cfg.run.seed, shuffle=True,
-            shard_id=dist.process_index(), num_shards=dist.process_count(),
+            shard_id=dist.data_index(), num_shards=dist.data_count(),
             paired=cfg.loss.distillation, num_workers=cfg.data.num_workers,
             worker_mode=cfg.data.worker_mode)
         steps_per_epoch = max(1, len(train_iter))
@@ -188,7 +183,8 @@ def _main(cfg: Config, device: torch.device) -> Optional[float]:
                                           device)
         start_epoch += 1
     else:
-        model = _fresh_model(cfg, tokenizer, device, cfg.run.seed)
+        model = apply_pretrained(
+            cfg, _fresh_model(cfg, tokenizer, device, cfg.run.seed))
         if cfg.run.load:
             # Overlay: keys only in the fresh model keep their init
             # (reference --frozen_weights, main.py:475-489).
@@ -197,10 +193,15 @@ def _main(cfg: Config, device: torch.device) -> Optional[float]:
                                                      prefer_ema=True)))
         teacher = bank = None
         if cfg.loss.distillation:
-            teacher = _fresh_model(cfg, tokenizer, device, cfg.run.seed + 1)
+            teacher = apply_pretrained(cfg, _fresh_model(
+                cfg, tokenizer, device, cfg.run.seed + 1))
             if cfg.run.load_noun:
                 teacher.load_state_dict(ckpt.load_params(cfg.run.load_noun,
                                                          prefer_ema=True))
+        if grid.tp > 1:
+            for m in (model, teacher):
+                if m is not None:
+                    tp.shard_model(m, shard)
         if cfg.loss.cluster:
             bank = init_bank(len(TASKS), cfg.loss.cluster_memory_size,
                              cfg.loss.cluster_num, cfg.model.hidden_dim,
@@ -267,8 +268,9 @@ def _main(cfg: Config, device: torch.device) -> Optional[float]:
     best_map = -1.0
     for epoch in range(start_epoch, cfg.optim.epochs):
         t0 = time.time()
-        state, train_stats = engine.train_one_epoch(
-            train_step, state, train_iter, epoch, jsonl=jsonl, tb=tb)
+        with trace(cfg.run.profile_dir if epoch == start_epoch else None):
+            state, train_stats = engine.train_one_epoch(
+                train_step, state, train_iter, epoch, jsonl=jsonl, tb=tb)
         jsonl.write({"kind": "epoch", "epoch": epoch,
                      "seconds": time.time() - t0, **train_stats})
         if cfg.run.output_dir:

@@ -8,10 +8,17 @@ Dropout is ``dropout_u8``, the JAX package's ``_dropout_u8``: it acts only in
 ``.train()`` mode, and there it takes its randomness from the
 ``torch.Generator`` that the training step seeds per step (the counterpart of
 ``make_dropout_rng``) and passes down every forward as ``generator``.
+
+``remat`` is ``nn.remat``: a block's activations are recomputed in the
+backward (``torch.utils.checkpoint``), with the generator put back to its
+state before the block, so that the recomputation draws the same dropout
+bits. Under tensor parallelism (``parallel/tp.py``) a module whose
+``tp_shard`` is set holds its shard of the weights and calls the model
+group's collectives.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +28,7 @@ from toist_tpu_torch.ops.flash_attention import (attention_keep,
                                                  attention_plain, drop_scale,
                                                  drop_threshold,
                                                  flash_attention, random_keep)
+from toist_tpu_torch.parallel import tp
 
 # Minimum key length for the fused kernel (toist_tpu/models/layers.py): the
 # decoder's 100-key self-attention stays on the plain path.
@@ -40,15 +48,53 @@ def active_rate(module: nn.Module, rate: float,
 
 
 def dropout_u8(x: torch.Tensor, rate: float,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               shard: Optional[tp.Shard] = None) -> torch.Tensor:
     """``_dropout_u8`` (toist_tpu/models/layers.py:20-43): 8 random bits per
     element from ``generator``, keep iff bits >= q = min(round(rate * 256),
-    255), kept values scaled by 1 / (1 - q/256). Rate 0 is the identity."""
+    255), kept values scaled by 1 / (1 - q/256). Rate 0 is the identity.
+    ``shard``: x is this rank's slice of the last dim; the bits are drawn
+    for the whole tensor and sliced (``tp.local_keep``)."""
     q = drop_threshold(rate)
     if q == 0:
         return x
-    keep = random_keep(x.shape, q, generator)
+    shape = x.shape if shard is None else (*x.shape[:-1],
+                                           x.shape[-1] * shard[1])
+    keep = tp.local_keep(random_keep(shape, q, generator), shard, -1)
     return torch.where(keep, x * drop_scale(q), x.new_zeros(()))
+
+
+def remat(block: Callable, generator: Optional[torch.Generator], *args):
+    """``block(*args)`` whose activations are recomputed in the backward
+    (flax ``nn.remat``): ``torch.utils.checkpoint`` restores the global RNGs
+    only, so the ``generator`` (which the block's dropout and the
+    attention kernels' seeds draw from) is put back to its state before the
+    block for the recomputation, and to its later state after it."""
+    from torch.utils.checkpoint import checkpoint
+
+    if generator is None:
+        return checkpoint(block, *args, use_reentrant=False)
+    before = generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:                        # the forward
+            return block(*a)
+        after = generator.get_state()            # the recomputation
+        generator.set_state(before)
+        try:
+            return block(*a)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def remat_active(module: nn.Module, on: bool) -> bool:
+    """Whether ``module`` recomputes now: remat on, training, and a graph
+    being built."""
+    return on and module.training and torch.is_grad_enabled()
 
 
 def dropout_exact(x: torch.Tensor, rate: float,
@@ -78,6 +124,7 @@ class MultiheadAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout = dropout
         self.fused = True
+        self.tp_shard: Optional[tp.Shard] = None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
                                                        embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
@@ -93,18 +140,25 @@ class MultiheadAttention(nn.Module):
         training mode the probabilities are dropped with randomness from
         ``generator``."""
         rate = active_rate(self, self.dropout, generator)
+        shard = self.tp_shard
+        heads = tp.local_heads(self.num_heads, shard)
+        if shard is not None:
+            query, key, value = tp.copy_to_model(query, key, value)
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
         b_q, b_k, b_v = self.in_proj_bias.chunk(3)
         q = F.linear(query, w_q, b_q)
         k = F.linear(key, w_k, b_k)
         v = F.linear(value, w_v, b_v)
         if self.fused and k.shape[1] >= FUSED_MIN_KV:
-            out, _ = flash_attention(q, k, v, key_padding_mask,
-                                     self.num_heads, rate, generator)
+            out, _ = flash_attention(q, k, v, key_padding_mask, heads, rate,
+                                     generator, shard)
         else:
-            keep = attention_keep(q, k, self.num_heads, rate, generator)
-            out, _ = attention_plain(q, k, v, key_padding_mask,
-                                     self.num_heads, keep, rate)
+            keep = tp.local_keep(attention_keep(q, k, self.num_heads, rate,
+                                                generator), shard, 1)
+            out, _ = attention_plain(q, k, v, key_padding_mask, heads, keep,
+                                     rate)
+        if shard is not None:
+            return tp.row_linear(out, self.out_proj)
         return self.out_proj(out)
 
 
@@ -117,13 +171,18 @@ def set_fused_attention(model: nn.Module, fused: bool) -> None:
 
 
 def ffn(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
-        rate: float = 0.0, generator: Optional[torch.Generator] = None
-        ) -> torch.Tensor:
+        rate: float = 0.0, generator: Optional[torch.Generator] = None,
+        shard: Optional[tp.Shard] = None) -> torch.Tensor:
     """linear1 -> relu -> dropout -> linear2 (toist_tpu FFN). The reference
     keeps the two linears directly on each transformer layer, so in the port
     the FFN is this function over the layer's own ``linear1`` / ``linear2``;
-    ``rate`` is the layer's active rate (``active_rate``)."""
-    return linear2(dropout_u8(F.relu(linear1(x)), rate, generator))
+    ``rate`` is the layer's active rate (``active_rate``). With ``shard``
+    linear1 is column- and linear2 row-parallel."""
+    if shard is None:
+        return linear2(dropout_u8(F.relu(linear1(x)), rate, generator))
+    (x,) = tp.copy_to_model(x)
+    h = dropout_u8(F.relu(linear1(x)), rate, generator, shard)
+    return tp.row_linear(h, linear2)
 
 
 class MLP(nn.Module):

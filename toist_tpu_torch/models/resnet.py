@@ -11,7 +11,11 @@ The JAX stem computes its 7x7 stride-2 conv through a 2x2 space-to-depth
 rewrite, a TPU layout device with the same arithmetic; here it is the plain
 conv. As in the JAX package (and unlike torchvision), the padded canvas
 region is zeroed after the stem + max-pool and after every stage, which makes
-the features invariant to how far a canvas is padded.
+the features invariant to how far a canvas is padded. With ``remat`` each
+bottleneck's activations are recomputed in the backward
+(``toist_tpu/models/resnet.py:170``). ``Backbone`` also takes the
+``timm_[tf_]efficientnet_b0..b5`` names (``models/efficientnet.py``), as
+``toist_tpu/models/resnet.py:188-205`` dispatches them.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from toist_tpu_torch.models.layers import remat, remat_active
 
 STAGE_SIZES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
                "resnet18-test": (1, 1, 1, 1)}
@@ -102,11 +108,14 @@ class ResNet(nn.Module):
     """ResNet trunk returning {layer1..layer4} NCHW feature maps."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 23, 3),
-                 dilation: bool = False, norm: str = "frozen_bn"):
+                 dilation: bool = False, norm: str = "frozen_bn",
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _norm(norm, 64)
         widths = (64, 128, 256, 512)
+        self.channels = {f"layer{i + 1}": w * 4 for i, w in enumerate(widths)}
         cin = 64
         for si, (blocks, width) in enumerate(zip(stage_sizes, widths)):
             last = si == len(stage_sizes) - 1
@@ -134,21 +143,36 @@ class ResNet(nn.Module):
         x = apply_mask(F.max_pool2d(x, 3, stride=2, padding=1))
         feats = {}
         for si in range(self.num_stages):
-            x = apply_mask(getattr(self, f"layer{si + 1}")(x))
+            for block in getattr(self, f"layer{si + 1}"):
+                x = (remat(block, None, x) if remat_active(self, self.remat)
+                     else block(x))
+            x = apply_mask(x)
             feats[f"layer{si + 1}"] = x
         return feats
 
 
 class Backbone(nn.Module):
-    """The reference's ``backbone.0``: a ResNet trunk under ``body``."""
+    """The reference's ``backbone.0``: a ResNet or EfficientNet trunk under
+    ``body``; ``body.channels`` gives each level's channels."""
 
     def __init__(self, name: str = "resnet101", dilation: bool = False,
-                 norm: str = "frozen_bn"):
+                 norm: str = "frozen_bn", remat: bool = False):
         super().__init__()
+        if name.startswith("timm_"):
+            from toist_tpu_torch.models.efficientnet import (
+                make_efficientnet, parse_timm_efficientnet)
+            variant = parse_timm_efficientnet(name)
+            if variant is None:
+                raise ValueError(
+                    f"timm backbone {name} is not available in "
+                    "toist_tpu_torch; supported: resnet50/resnet101 and "
+                    "timm_[tf_]efficientnet_b0..b5 (models/efficientnet.py)")
+            self.body = make_efficientnet(variant, norm, remat)
+            return
         if name not in STAGE_SIZES:
             raise ValueError(f"backbone {name!r} is not ported; supported: "
                              f"{sorted(STAGE_SIZES)}")
-        self.body = ResNet(STAGE_SIZES[name], dilation, norm)
+        self.body = ResNet(STAGE_SIZES[name], dilation, norm, remat)
 
     def forward(self, x, pad_mask=None):
         return self.body(x, pad_mask)

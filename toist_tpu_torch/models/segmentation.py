@@ -25,7 +25,7 @@ every layout: a folded checkpoint loads into it unchanged.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -77,7 +77,8 @@ class MaskHeadSmallConv(nn.Module):
     16/8/4). Output [B*N, 1, h4, w4] f32 logits: ``out_lay`` stays f32 when
     the rest of the head is cast to the compute dtype."""
 
-    def __init__(self, dim: int, context_dim: int):
+    def __init__(self, dim: int, context_dim: int,
+                 fpn_dims: Sequence[int] = (1024, 512, 256)):
         super().__init__()
         cd = context_dim
         inter = [dim, cd // 2, cd // 4, cd // 8, cd // 16]
@@ -86,10 +87,12 @@ class MaskHeadSmallConv(nn.Module):
             setattr(self, f"lay{i}", nn.Conv2d(ci, co, 3, padding=1))
             setattr(self, f"gn{i}", nn.GroupNorm(GN_GROUPS, co, eps=GN_EPS))
         self.out_lay = nn.Conv2d(inter[4], 1, 3, padding=1)
-        # C4 / C3 / C2: the bottleneck ResNet's layer3 / layer2 / layer1.
-        self.adapter1 = nn.Conv2d(1024, inter[1], 1)
-        self.adapter2 = nn.Conv2d(512, inter[2], 1)
-        self.adapter3 = nn.Conv2d(256, inter[3], 1)
+        # C4 / C3 / C2: the backbone's layer3 / layer2 / layer1 (ResNet:
+        # 1024, 512, 256; EfficientNet-B3: 136, 48, 32), whose widths flax
+        # infers in JAX.
+        self.adapter1 = nn.Conv2d(fpn_dims[0], inter[1], 1)
+        self.adapter2 = nn.Conv2d(fpn_dims[1], inter[2], 1)
+        self.adapter3 = nn.Conv2d(fpn_dims[2], inter[3], 1)
 
     def _stage(self, x: torch.Tensor, i: int) -> torch.Tensor:
         x = getattr(self, f"lay{i}")(x)

@@ -8,7 +8,10 @@ mode the embeddings, the attention output and the FFN output drop as flax's
 ``nn.Dropout`` does in the JAX module (``dropout_exact``: keep probability
 exactly 1 - rate, scale 1 / (1 - rate)); the attention probabilities drop
 with ``dropout_u8`` (keep 230/256 at rate 0.1), as JAX's ``_dropout_u8``
-does there.
+does there. Under tensor parallelism (``parallel/tp.py``) a layer's
+attention (``tp_attn``) and FFN (``tp_ffn``) run on this rank's shard: q, k,
+v and the intermediate dense column-parallel, the two output denses
+row-parallel; the probabilities' mask is drawn over all heads and sliced.
 """
 from __future__ import annotations
 
@@ -18,10 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from toist_tpu_torch.models.layers import (active_rate, dropout_exact,
-                                           dropout_u8)
+from toist_tpu_torch.models.layers import active_rate, dropout_exact
 from toist_tpu_torch.ops.flash_attention import (attention_keep,
                                                  attention_plain)
+from toist_tpu_torch.parallel import tp
 
 
 class RobertaEmbeddings(nn.Module):
@@ -84,21 +87,30 @@ class RobertaLayer(nn.Module):
         self.attention = _Attention(hidden)
         self.intermediate = _Intermediate(hidden, intermediate)
         self.output = _Output(intermediate, hidden)
+        self.tp_attn: Optional[tp.Shard] = None
+        self.tp_ffn: Optional[tp.Shard] = None
 
     def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         rate = active_rate(self, self.dropout, generator)
         sa = self.attention.self
-        q, k = sa.query(x), sa.key(x)
-        attn, _ = attention_plain(q, k, sa.value(x), key_padding_mask,
-                                  self.num_heads,
-                                  attention_keep(q, k, self.num_heads, rate,
-                                                 generator), rate)
+        xa = x if self.tp_attn is None else tp.copy_to_model(x)[0]
+        q, k = sa.query(xa), sa.key(xa)
+        keep = tp.local_keep(attention_keep(q, k, self.num_heads, rate,
+                                            generator), self.tp_attn, 1)
+        attn, _ = attention_plain(q, k, sa.value(xa), key_padding_mask,
+                                  tp.local_heads(self.num_heads,
+                                                 self.tp_attn), keep, rate)
         out = self.attention.output
-        x = out.LayerNorm(x + dropout_exact(out.dense(attn), rate, generator))
-        h = F.gelu(self.intermediate.dense(x))
-        return self.output.LayerNorm(
-            x + dropout_exact(self.output.dense(h), rate, generator))
+        dense = (out.dense(attn) if self.tp_attn is None
+                 else tp.row_linear(attn, out.dense))
+        x = out.LayerNorm(x + dropout_exact(dense, rate, generator))
+        xf = x if self.tp_ffn is None else tp.copy_to_model(x)[0]
+        h = F.gelu(self.intermediate.dense(xf))
+        dense = (self.output.dense(h) if self.tp_ffn is None
+                 else tp.row_linear(h, self.output.dense))
+        return self.output.LayerNorm(x + dropout_exact(dense, rate,
+                                                       generator))
 
 
 class _Encoder(nn.Module):

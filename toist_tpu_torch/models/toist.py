@@ -17,7 +17,12 @@ cache are NCHW (channels_last memory); token tensors are [B, S, D].
 
 Training mode (``.train()``) drops as the JAX model does with
 ``deterministic=False``; ``encode``, ``decode`` and ``forward`` then take the
-step's ``generator`` (the JAX model's "dropout" rng).
+step's ``generator`` (the JAX model's "dropout" rng). ``cfg.remat``
+recomputes the backbone blocks and the encoder layers in the backward;
+``cfg.fused_attention="off"`` routes every attention through the plain
+version on any device ("auto", "on" and "interpret" take the kernels for
+CUDA tensors). ``input_proj`` and the mask head's adapters take the
+backbone's channels (ResNet's 2048 / 1024, 512, 256, or EfficientNet's).
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from torch import nn
 
 from toist_tpu_torch.config import ModelConfig
 from toist_tpu_torch.models.joint_transformer import JointEncoder, QueryDecoder
-from toist_tpu_torch.models.layers import MLP, FeatureResizer
+from toist_tpu_torch.models.layers import (MLP, FeatureResizer,
+                                           set_fused_attention)
 from toist_tpu_torch.models.position_encoding import (
     LearnedPositionEmbedding2D, SinePositionEmbedding)
 from toist_tpu_torch.models.resnet import Backbone, downsample_mask
@@ -59,7 +65,8 @@ class _Transformer(nn.Module):
         super().__init__()
         d = cfg.hidden_dim
         self.encoder = JointEncoder(d, cfg.nheads, cfg.enc_layers,
-                                    cfg.dim_feedforward, cfg.dropout)
+                                    cfg.dim_feedforward, cfg.dropout,
+                                    cfg.remat)
         self.decoder = QueryDecoder(d, cfg.nheads, cfg.dec_layers,
                                     cfg.dim_feedforward, cfg.dropout)
         self.resizer = FeatureResizer(cfg.text_hidden, d,
@@ -82,9 +89,11 @@ class TOIST(nn.Module):
         pos = (LearnedPositionEmbedding2D(d // 2)
                if cfg.position_embedding == "learned"
                else SinePositionEmbedding(d // 2))
-        self.backbone = nn.ModuleList([
-            Backbone(cfg.backbone, cfg.dilation, cfg.backbone_norm), pos])
-        self.input_proj = nn.Conv2d(2048, d, 1)
+        body = Backbone(cfg.backbone, cfg.dilation, cfg.backbone_norm,
+                        cfg.remat)
+        self.backbone = nn.ModuleList([body, pos])
+        chans = body.body.channels
+        self.input_proj = nn.Conv2d(chans["layer4"], d, 1)
         self.transformer = _Transformer(cfg, text_vocab_size)
         self.query_embed = nn.Embedding(cfg.num_queries, d)
         self.class_embed = nn.Linear(d, cfg.num_classes + 1)
@@ -96,7 +105,11 @@ class TOIST(nn.Module):
         if cfg.masks:
             # Every mask_head_layout builds the flat head (segmentation.py).
             self.bbox_attention = MHAttentionMap(d, cfg.nheads)
-            self.mask_head = MaskHeadSmallConv(d + cfg.nheads, d)
+            self.mask_head = MaskHeadSmallConv(
+                d + cfg.nheads, d,
+                [chans[f"layer{i}"] for i in (3, 2, 1)])
+        if cfg.fused_attention == "off":
+            set_fused_attention(self, False)
 
     @classmethod
     def from_state_dict(cls, state_dict: Mapping[str, torch.Tensor],

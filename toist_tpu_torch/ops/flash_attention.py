@@ -48,6 +48,9 @@ BWD_TC_SOURCE = "flash_attn_bwd_tc.cu"    # bf16 backward, tensor cores
 KERNEL_SOURCES = (FWD_SOURCE, FWD_TC_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
 HEAD_DIMS = (16, 32)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Under tensor parallelism the dropout seed of model shard m is the call's
+# seed plus m * this stride (toist_tpu/ops/flash_attention.py).
+SEED_MODEL_STRIDE = 0x61C88647
 
 
 def drop_threshold(rate: float) -> int:
@@ -372,7 +375,8 @@ def dropout_keep_mask_plain(seed: int, batch: int, num_heads: int, sq: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: Optional[torch.Tensor], num_heads: int,
                     dropout_rate: float = 0.0,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    shard: Optional[Tuple[int, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused attention over projected q/k/v in packed [B, S, D] layout.
 
@@ -382,21 +386,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     call, as the JAX module draws one per call); pass rate 0 outside
     training. On CPU tensors this is ``attention_plain`` under autograd; on
     CUDA tensors it launches the kernels (f32 or bf16, head dim 16 or 32) or
-    raises."""
+    raises. Under tensor parallelism ``shard`` is (model index, model
+    count) and q/k/v hold this rank's ``num_heads`` heads: the kernels'
+    seed folds the model index (``SEED_MODEL_STRIDE``), and the
+    plain version draws its mask over all heads and keeps this rank's."""
     _check_inputs(q, k, v, key_padding_mask, num_heads)
     drop_q = drop_threshold(dropout_rate)
     if drop_q and generator is None:
         raise ValueError("attention dropout needs a generator")
+    index, count = shard or (0, 1)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, key_padding_mask, num_heads,
-                               attention_keep(q, k, num_heads, dropout_rate,
-                                              generator), dropout_rate)
+        keep = attention_keep(q, k, num_heads * count, dropout_rate,
+                              generator)
+        if keep is not None and count > 1:
+            keep = keep[:, index * num_heads:(index + 1) * num_heads]
+        return attention_plain(q, k, v, key_padding_mask, num_heads, keep,
+                               dropout_rate)
     if q.device.type != "cuda":
         raise ValueError(f"no attention path for device {q.device}")
     seed = None
     if drop_q:
         seed = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64,
                              generator=generator, device=q.device)
+        if index:
+            seed += index * SEED_MODEL_STRIDE
     mask_u8 = None
     if key_padding_mask is not None:
         mask_u8 = key_padding_mask.contiguous().view(torch.uint8)

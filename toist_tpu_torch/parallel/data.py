@@ -6,9 +6,13 @@ XLA inserts the gradient psum. Here each rank holds its own replica and its
 own slice of the global batch (``BatchIterator(shard_id, num_shards)``), and
 the step reduces explicitly:
 
-- ``make_mesh``: the data axis's extent, the world size, checked as
-  ``mesh.py:20-30`` checks a mesh shape;
-- ``replicate``: at start every rank takes rank 0's tensors;
+- ``make_mesh``: the extents of the ('data',) or ('data', 'model') grid
+  of ranks, checked as ``mesh.py:20-30`` checks a mesh shape; a 'model'
+  axis of tp > 1 builds the grid's groups (``utils/dist.set_grid``) for
+  tensor parallelism (``parallel/tp.py``), and everything below then runs
+  over the data group;
+- ``replicate``: at start every rank takes rank 0's tensors (under tensor
+  parallelism, its data group's first rank's);
 - ``reduce_gradients``: one flat, bucketed all-reduce (sum) of the f32
   master gradients per optimizer step, after accumulation and before the
   clip, so that the clip sees the global batch's gradient
@@ -38,38 +42,40 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from toist_tpu_torch.utils import dist
 
-# Tensor parallelism (toist_tpu/parallel/tp.py) in ROADMAP.md, queue A.
-TP_ROADMAP_ITEM = 12
 # Elements per all-reduce or broadcast call: 128 MiB of f32.
 BUCKET_NUMEL = 2 ** 25
 
 
 def make_mesh(mesh_shape: Sequence[int] = (-1,),
-              axes: Sequence[str] = ("data",)) -> int:
-    """The extent of the data axis of ``run.mesh_shape`` over the ranks,
-    each rank one device: ``(-1,)`` or ``(world,)``. A shape that needs
-    more devices than there are ranks raises ``ValueError``, as JAX's
-    ``make_mesh`` does, and so does one that leaves ranks out (JAX's
-    ``main``: every process contributes an equal slice of the global
-    batch)."""
-    if "model" in axes:
-        raise NotImplementedError(
-            "a 'model' mesh axis (tensor parallelism, toist_tpu/parallel/"
-            "tp.py) is not ported to toist_tpu_torch: ROADMAP queue A item "
-            f"{TP_ROADMAP_ITEM}")
-    if tuple(axes) != ("data",) or len(mesh_shape) != 1:
-        raise ValueError(f"mesh {list(mesh_shape)} over axes {list(axes)}: "
-                         "the port's mesh is one ('data',) axis")
+              axes: Sequence[str] = ("data",)) -> dist.Grid:
+    """The ranks' grid (``utils/dist.Grid``, its extents dp and tp) of
+    ``run.mesh_shape`` over ``run.mesh_axes`` ("data" or "data", "model"),
+    each rank one device; -1 takes the ranks left. A shape that needs more devices than there are
+    ranks raises ``ValueError``, as JAX's ``make_mesh`` does, and so does
+    one that leaves ranks out (JAX's ``main``: every process contributes an
+    equal slice of the global batch). A model extent above 1 builds the
+    grid's groups (``utils/dist.set_grid``): rank r at data index r // tp
+    and model index r % tp."""
+    axes, shape = tuple(axes), [int(x) for x in mesh_shape]
+    if axes not in (("data",), ("data", "model")) or len(shape) != len(axes):
+        raise ValueError(f"mesh {shape} over axes {list(axes)}: the port's "
+                         "mesh is ('data',) or ('data', 'model')")
     n = dist.process_count()
-    n_data = n if mesh_shape[0] == -1 else int(mesh_shape[0])
-    if n_data > n:
-        raise ValueError(f"mesh [{n_data}] needs {n_data} devices, have {n}")
-    if n_data % n:
+    if -1 in shape:
+        known = 1
+        for x in shape:
+            known *= x if x != -1 else 1
+        shape[shape.index(-1)] = max(n // known, 1)
+    n_data, tp = shape[0], (shape[1] if len(shape) > 1 else 1)
+    if n_data * tp > n:
+        raise ValueError(f"mesh {shape} needs {n_data * tp} devices, "
+                         f"have {n}")
+    if n_data * tp != n:
         raise ValueError(
-            f"data axis ({n_data}) must be divisible by the process count "
-            f"({n}): every process contributes an equal local slice of the "
-            "global batch")
-    return n_data
+            f"data axis ({n_data}) x model axis ({tp}) must cover the "
+            f"process count ({n}): every process contributes an equal local "
+            "slice of the global batch")
+    return dist.set_grid(n_data, tp)
 
 
 def _buckets(tensors: Iterable[torch.Tensor]) -> List[List[torch.Tensor]]:
@@ -105,19 +111,25 @@ def _as_wire(t: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Every rank's ``tensors`` set, in place, to rank ``src``'s: flat
-    buckets, one broadcast each."""
-    if dist.process_count() == 1:
+def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0,
+                      axis: str = "data") -> None:
+    """Every rank's ``tensors`` set, in place, to those of the rank at
+    index ``src`` of its ``axis`` group ("data", "model"): flat buckets,
+    one broadcast each."""
+    n, group = dist._group(axis)
+    if not dist.initialized() or n == 1:
         return
+    g = dist.grid()
+    root = (src * g.tp + g.model_index if axis == "data"
+            else g.data_index * g.tp + src)
     seen, unique = set(), []
     for t in tensors:                  # a master may be its parameter
         if t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             unique.append(_as_wire(t.detach()))
     for bucket in _buckets(unique):
-        _collective_flat(bucket,
-                         lambda t: torch.distributed.broadcast(t, src))
+        _collective_flat(bucket, lambda t: torch.distributed.broadcast(
+            t, root, group=group))
 
 
 def replicate(state) -> None:
@@ -126,20 +138,33 @@ def replicate(state) -> None:
     f32 masters and EMAs, and the cluster bank. A fresh start draws the
     same weights from the same seed on every rank, and ``--load`` /
     ``--resume`` read the same file; the broadcast makes it so whatever the
-    rank's device."""
-    tensors = []
-    for model in (state.model, state.teacher):
-        if model is not None:
-            tensors += list(model.state_dict().values())
-    tensors += [m for _, m in state.masters]
-    for ema in (state.ema, state.teacher_ema):
+    rank's device. Under tensor parallelism each data group takes its
+    first rank's tensors (each model index holds its own shards), and then
+    the replicated ones go from model index 0 over each model group."""
+    tensors, sharded = [], set()         # data_ptr of the sharded ones
+    for model, ema in ((state.model, state.ema),
+                       (state.teacher, state.teacher_ema)):
+        if model is None:
+            continue
+        tensors += list(model.state_dict().values())
+        for n, p in model.named_parameters():
+            if hasattr(p, "tp_spec"):
+                sharded.add(p.data_ptr())
+                if ema is not None and n in ema:
+                    sharded.add(ema[n].data_ptr())
         if ema is not None:
             tensors += list(ema.values())
+    for p, m in state.masters:
+        tensors.append(m)
+        if hasattr(p, "tp_spec"):
+            sharded.add(m.data_ptr())
     if state.cluster_bank is not None:
         b = state.cluster_bank
         tensors += [b.feature_bank, b.cluster_centers, b.update_count,
                     b.full]
     broadcast_tensors(tensors)
+    broadcast_tensors([t for t in tensors if t.data_ptr() not in sharded],
+                      axis="model")
 
 
 @torch.no_grad()
@@ -165,8 +190,9 @@ def reduce_gradients(grads: List[torch.Tensor],
 def zero1_state_dict(optimizer) -> Dict:
     """The full ``state_dict`` of a ZeRO-1 optimizer over the port's AdamW,
     on every rank, in the wrapped optimizer's format (global parameter
-    indices in the order of the param groups): each rank broadcasts the
-    moments of the tensors it owns, in flat buckets, and its steps."""
+    indices in the order of the param groups): each rank of the data group
+    broadcasts the moments of the tensors it owns, in flat buckets, and
+    its steps."""
     local = optimizer.optim
     params = [p for g in optimizer.param_groups for p in g["params"]]
     index = {id(p): i for i, p in enumerate(params)}
@@ -174,10 +200,10 @@ def zero1_state_dict(optimizer) -> Dict:
             for g in local.param_groups for p in g["params"]
             if p in local.state}
     state: Dict[int, Dict[str, torch.Tensor]] = {}
-    for rank, steps in enumerate(dist.all_gather_object(mine)):
+    for rank, steps in enumerate(dist.all_gather_object(mine, axis="data")):
         for i, step in sorted(steps.items()):
             p = params[i]
-            own = local.state.get(p) if rank == dist.process_index() else None
+            own = local.state.get(p) if rank == dist.data_index() else None
             state[i] = {"step": torch.tensor(step),
                         "exp_avg": own["exp_avg"] if own else torch.empty_like(
                             p, dtype=local.moment_dtype),

@@ -8,7 +8,8 @@ with each kept box's mask, a COCO RLE of the original image size
 (``postprocess_masks_device``).
 
 Example:
-    predictor = Predictor.from_state_dict(state_dict, cfg, device="cuda")
+    predictor = Predictor.from_checkpoint("runs/dete/checkpoint", cfg)
+    # or Predictor.from_state_dict(state_dict, cfg, device="cuda")
     dets = predictor(images=[img1, img2], task_ids=[3, 3])
     dets[0]["boxes"], dets[0]["scores"]   # xyxy absolute, 1-P(noobj)
     dets[0]["masks"]                      # with a mask head: RLE dicts
@@ -58,6 +59,20 @@ class Predictor:
         tokenizer = tokenizer or build_tokenizer(cfg)
         model = TOIST.from_state_dict(state_dict, cfg.model, device)
         return cls(model, tokenizer, cfg, score_threshold=score_threshold)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: Config,
+                        tokenizer: Optional[RobertaBPE] = None,
+                        prefer_ema: bool = True, score_threshold: float = 0.0,
+                        device="cuda") -> "Predictor":
+        """From a reference-format checkpoint (the port's own or the
+        reference's ``.pth``; its EMA weights when ``prefer_ema`` and
+        present), as ``toist_tpu/predict.py:52-66`` reads one."""
+        from toist_tpu_torch.train.checkpoint import load_params
+
+        return cls.from_state_dict(load_params(path, prefer_ema=prefer_ema),
+                                   cfg, device=device, tokenizer=tokenizer,
+                                   score_threshold=score_threshold)
 
     def prepare(self, image: np.ndarray, task_id: int,
                 orig_size: Optional[Tuple[int, int]] = None) -> dict:

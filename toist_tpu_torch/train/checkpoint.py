@@ -26,7 +26,11 @@ Across ranks every rank calls ``save``, as JAX's ``main`` does
 (``parallel/data.zero1_state_dict``), and rank 0 alone writes the same
 file, with the full ``optimizer``. ``restore`` gives every rank the same state, and a
 ZeRO-1 optimizer keeps its rank's share of the moments: a checkpoint
-crosses between any numbers of ranks.
+crosses between any numbers of ranks. Under tensor parallelism the file
+holds whole tensors: ``save`` gathers every sharded weight, EMA and moment
+over the model group (``parallel/tp.gather_tensor``: a packed q/k/v tensor
+chunk by chunk), and ``restore`` cuts them to the rank's shards, so a TP
+checkpoint loads in one process and a one-process one in a TP run.
 """
 from __future__ import annotations
 
@@ -41,11 +45,12 @@ import torch
 
 from toist_tpu_torch.config import Config
 from toist_tpu_torch.parallel import data as dp
+from toist_tpu_torch.parallel import tp
 from toist_tpu_torch.train.cluster import ClusterBank
 from toist_tpu_torch.train.state import (TrainState, init_train_state,
                                          load_masters, model_masters)
 from toist_tpu_torch.utils.convert import load_reference_checkpoint
-from toist_tpu_torch.utils.dist import process_index
+from toist_tpu_torch.utils import dist
 
 # One record per finished write: path, bytes, copy_s (device -> host, on the
 # caller's thread), write_s (torch.save + rename).
@@ -73,24 +78,44 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+def whole_state_dict(state: TrainState, ema: bool = False,
+                     teacher: bool = False) -> Dict[str, torch.Tensor]:
+    """``full_state_dict`` with every tensor whole: under tensor
+    parallelism gathered over the model group (a collective, on every
+    rank)."""
+    model = state.teacher if teacher else state.model
+    return tp.gather_state_dict(full_state_dict(state, ema, teacher),
+                                tp.specs_of(model))
+
+
+def _map_moments(state: TrainState, opt: Dict[str, Any], fn
+                 ) -> Dict[str, Any]:
+    """The optimizer state dict ``opt`` with ``fn(moment, spec)`` applied to
+    each moment of a sharded tensor (the masters' order of its groups gives
+    each parameter index its TP spec)."""
+    by_master = {id(m): getattr(p, "tp_spec", None)
+                 for p, m in state.masters}
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    spec = {i: by_master.get(id(p)) for i, p in enumerate(params)}
+    return dict(opt, state={
+        i: {k: fn(v, spec[i]) if spec[i] and torch.is_tensor(v)
+            and v.dim() > 0 else v for k, v in st.items()}
+        for i, st in opt["state"].items()})
+
+
 def _host_payload(state: TrainState, epoch: int, args: Optional[dict],
-                  opt: Dict[str, Any]) -> Dict[str, Any]:
+                  opt: Dict[str, Any],
+                  parts: Dict[str, Dict[str, torch.Tensor]]
+                  ) -> Dict[str, Any]:
     payload = {
-        "model": {k: _host(v) for k, v in full_state_dict(state).items()},
         "optimizer": {
             "state": {i: {k: _host(v) if torch.is_tensor(v) else v
                           for k, v in s.items()}
                       for i, s in opt["state"].items()},
             "param_groups": [dict(g) for g in opt["param_groups"]]},
         "epoch": epoch, "step": state.step, "args": args or {}}
-    parts = [("model_ema", state.ema, False)]
-    if state.teacher is not None:
-        parts += [("model_noun", True, True),
-                  ("model_noun_ema", state.teacher_ema, True)]
-    for key, present, teacher in parts:
-        if present is not None:
-            payload[key] = {k: _host(v) for k, v in full_state_dict(
-                state, key.endswith("_ema"), teacher).items()}
+    for key, sd in parts.items():
+        payload[key] = {k: _host(v) for k, v in sd.items()}
     if state.cluster_bank is not None:
         payload["cluster_criterion"] = {
             f.name: _host(getattr(state.cluster_bank, f.name))
@@ -119,11 +144,21 @@ def save(path: str, state: TrainState, epoch: int,
     opt = (dp.zero1_state_dict(state.optimizer)
            if hasattr(state.optimizer, "optim")                # ZeRO-1
            else state.optimizer.state_dict())
-    if process_index() != 0:
-        return
+    if dist.model_count() > 1:
+        opt = _map_moments(state, opt, tp.gather_tensor)
+    parts = {"model": (False, False)}                     # (ema, teacher)
+    if state.ema is not None:
+        parts["model_ema"] = (True, False)
+    if state.teacher is not None:
+        parts["model_noun"] = (False, True)
+        if state.teacher_ema is not None:
+            parts["model_noun_ema"] = (True, True)
     wait_for_async_saves()
     t0 = time.perf_counter()
-    payload = _host_payload(state, epoch, args, opt)
+    parts = {k: whole_state_dict(state, *v) for k, v in parts.items()}
+    if dist.process_index() != 0:
+        return
+    payload = _host_payload(state, epoch, args, opt, parts)
     copy_s = time.perf_counter() - t0
     if not async_save:
         _write(path, payload, copy_s)
@@ -158,11 +193,20 @@ def restore(path: str, cfg: Config, steps_per_epoch: int, total_steps: int,
     from toist_tpu_torch.models.toist import TOIST
 
     payload = _load(path)
-    model = TOIST.from_state_dict(payload["model"], cfg.model, device)
+    shard = (dist.model_index(), dist.model_count())
+
+    def built(key):
+        model = TOIST.from_state_dict(payload[key], cfg.model, device)
+        specs = tp.shard_model(model, shard) if shard[1] > 1 else {}
+        for k in (key, key + "_ema"):            # cut to this rank's shard
+            if payload.get(k):
+                payload[k] = tp.shard_state_dict(payload[k], specs, shard)
+        return model
+
+    model = built("model")
     teacher = bank = None
     if "model_noun" in payload:
-        teacher = TOIST.from_state_dict(payload["model_noun"], cfg.model,
-                                        device)
+        teacher = built("model_noun")
     if "cluster_criterion" in payload:
         bank = ClusterBank(**{k: v.to(device) for k, v in
                               payload["cluster_criterion"].items()})
@@ -172,7 +216,11 @@ def restore(path: str, cfg: Config, steps_per_epoch: int, total_steps: int,
     if teacher is not None:
         load_masters(state, payload["model_noun"],
                      payload.get("model_noun_ema"), teacher=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    opt = payload["optimizer"]
+    if shard[1] > 1:
+        opt = _map_moments(state, opt,
+                           lambda t, spec: tp.shard_tensor(t, spec, shard))
+    state.optimizer.load_state_dict(opt)
     state.step = int(payload["step"])
     return state, int(payload["epoch"])
 

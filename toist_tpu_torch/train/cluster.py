@@ -98,15 +98,16 @@ def caption_span_mask(batch: Mapping[str, torch.Tensor],
 
 def _global_rows(pooled: torch.Tensor, task_idx: torch.Tensor,
                  valid: torch.Tensor, across_ranks: bool):
-    """(pooled, task_idx, valid) of the global batch, all-gathered in rank
-    order in one f32 collective, and the slice of this rank's rows."""
+    """(pooled, task_idx, valid) of the global batch, all-gathered over the
+    data group in its order in one f32 collective, and the slice of this
+    rank's rows."""
     if not across_ranks or not dist.initialized():
         return pooled, task_idx, valid, slice(None)
     B = pooled.shape[0]
     rows = torch.cat([pooled.float(), task_idx[:, None].float(),
                       valid[:, None].float()], 1)
     g = dist.all_gather_rows(rows)
-    r = dist.process_index()
+    r = dist.data_index()
     return (g[:, :-2], g[:, -2].long(), g[:, -1] > 0,
             slice(r * B, (r + 1) * B))
 

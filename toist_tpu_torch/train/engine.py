@@ -17,7 +17,10 @@ rank (each step's collectives need every rank), padding a shard that runs
 out with all-invalid copies of its last batch, and merges the meters at
 the epoch's end (``toist_tpu/train/engine.py:69``); ``evaluate`` is
 host-sharded as JAX's is (``:105-127``): each rank evaluates its slice of
-the val set and the evaluators merge their records.
+the val set and the evaluators merge their records. Under tensor
+parallelism the slices are the data groups' (every rank of a model group
+runs the same batches, as its forward needs), and only model rank 0 of
+each data group feeds its evaluator, so nothing is counted tp times.
 """
 from __future__ import annotations
 
@@ -146,8 +149,9 @@ def evaluate(eval_step: Callable, task_datasets: Dict[int, object],
         # Each rank evaluates its slice of the val set (the reference's
         # DistributedSampler on dataset_val, main.py:439).
         it = BatchIterator([ds], spec, batch_size=batch_size, shuffle=False,
-                           shard_id=dist.process_index(),
-                           num_shards=dist.process_count())
+                           shard_id=dist.data_index(),
+                           num_shards=dist.data_count())
+        feeds = dist.model_index() == 0
         logger = MetricLogger(print_freq=print_freq,
                               header=f"Eval task {task_id}:")
 
@@ -158,9 +162,10 @@ def evaluate(eval_step: Callable, task_datasets: Dict[int, object],
             host = finish_to_host(handle)
             masks = (finish_masks_device(mask_handle)
                      if mask_handle is not None else None)
-            evaluator.update(np_b["image_id"], host["scores"],
-                             host["boxes"], valid=np_b["sample_valid"],
-                             masks=masks)
+            if feeds:
+                evaluator.update(np_b["image_id"], host["scores"],
+                                 host["boxes"], valid=np_b["sample_valid"],
+                                 masks=masks)
             if "loss" in host:  # absent w/ compute_eval_losses off
                 logger.update(loss=float(host["loss"]))
 

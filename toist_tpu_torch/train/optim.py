@@ -178,18 +178,22 @@ def make_optimizer(params: Dict[str, List[torch.Tensor]], cfg: OptimConfig,
     teacher's (``train/state.init_train_state``): one AdamW over both
     models, in a fixed order, since ``checkpoint.restore`` loads the
     moments by index. With ``zero1`` the AdamW is wrapped in
-    ``ZeroRedundancyOptimizer``: each rank keeps the moments of its share of
-    the tensors (every tensor is one rank's: the wrapper has no room for
-    JAX's policy of replicating leaves under 2**12 elements,
-    ``toist_tpu/parallel/mesh.py:87-113``), and broadcasts its updated
-    tensors after each step."""
+    ``ZeroRedundancyOptimizer`` over the data group: each rank keeps the
+    moments of its share of the tensors (every tensor is one rank's: the
+    wrapper has no room for JAX's policy of replicating leaves under 2**12
+    elements, ``toist_tpu/parallel/mesh.py:87-113``), and broadcasts its
+    updated tensors after each step."""
     groups = [{"params": params[g], "name": g, "lr": 0.0}
               for g in GROUPS if params.get(g)]
     kw = dict(lr=0.0, weight_decay=cfg.weight_decay,
               moment_dtype=cfg.moment_dtype)
     if zero1:
         from torch.distributed.optim import ZeroRedundancyOptimizer
-        return ZeroRedundancyOptimizer(groups, optimizer_class=AdamW, **kw)
+
+        from toist_tpu_torch.utils import dist
+        return ZeroRedundancyOptimizer(
+            groups, optimizer_class=AdamW,
+            process_group=dist.grid().data_group, **kw)
     return AdamW(groups, **kw)
 
 

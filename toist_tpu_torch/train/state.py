@@ -16,6 +16,10 @@ in ``masters``, and each of the optimizer's groups holds the student's
 tensors of that group, then the teacher's. With more than one rank and
 ``run.shard_opt_state`` (the default, as in JAX, ``toist_tpu/config.py:
 238``) the optimizer is ZeRO-1: each rank keeps a share of the moments.
+Under tensor parallelism the model holds this rank's shards (``parallel/
+tp.shard_model``, before this state is built), the masters, EMA and
+moments are shards too, and ZeRO-1 runs over the data group on them (as
+JAX's ``_zero1_spec(base=tp_spec)`` composes the two).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from toist_tpu_torch.train.cluster import ClusterBank
 from toist_tpu_torch.train.optim import (GROUPS, freeze_parameters,
                                          label_params, make_optimizer,
                                          make_schedules)
-from toist_tpu_torch.utils.dist import process_count
+from toist_tpu_torch.utils import dist
 
 
 @dataclasses.dataclass
@@ -77,7 +81,7 @@ def init_train_state(model: torch.nn.Module, cfg: Config,
                       optimizer=make_optimizer(
                           groups, cfg.optim,
                           zero1=cfg.run.shard_opt_state
-                          and process_count() > 1),
+                          and dist.data_count() > 1),
                       schedules=make_schedules(cfg.optim, steps_per_epoch,
                                                total_steps),
                       masters=masters, ema=emas[0], teacher=teacher,

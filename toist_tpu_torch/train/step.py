@@ -20,6 +20,10 @@ of the global batch: the losses' denominators are the global batch's (one
 all-reduce of the counts per step), the gradients and scalars are summed
 over the ranks before the clip (``parallel/data.reduce_gradients``), every
 rank applies the same update, and the dropout streams differ by rank.
+Under tensor parallelism (``parallel/tp.py``) those ranks are the data
+group's: the ranks of a model group run the same batch on one replica, so
+the dropout stream folds the data index, and the clip sees the norm of the
+whole replica (``tp.clip_grad_norm_``).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 from toist_tpu_torch.config import Config
 from toist_tpu_torch.models.postprocess import postprocess_boxes
 from toist_tpu_torch.parallel import data as dp
+from toist_tpu_torch.parallel import tp
 from toist_tpu_torch.train import cluster as cl
 from toist_tpu_torch.train import criterion as crit
 from toist_tpu_torch.train.optim import ema_update
@@ -80,14 +85,15 @@ def dropout_generator(device: torch.device, seed: int, step: int,
     """The step's dropout randomness (``make_dropout_rng``: the run seed
     folded with the step, and with the microbatch under accumulation);
     ``stream`` tells apart the distillation step's four forward halves
-    (JAX's r1..r4). The rank is folded in too: the attention kernels hash
-    a sample's local batch index, so without it every rank would drop the
-    same elements of its sample 0, where JAX's global array gives each
-    sample its own bits."""
+    (JAX's r1..r4). The data index is folded in too: the attention
+    kernels hash a sample's local batch index, so without it every replica
+    would drop the same elements of its sample 0, where JAX's global array
+    gives each sample its own bits. It is the data index and not the rank,
+    so that the ranks of a model group draw in lockstep."""
     g = torch.Generator(device=device)
     g.manual_seed((((seed * 1_000_003 + step) * 1_009 + micro)
                    + stream * 0x9E3779B97F4A7C15
-                   + dist.process_index() * 0xD1B54A32D192ED03) % 2 ** 63)
+                   + dist.data_index() * 0xD1B54A32D192ED03) % 2 ** 63)
     return g
 
 
@@ -224,8 +230,10 @@ def apply_gradients(state: TrainState, cfg: Config,
     ``scalars``."""
     masters = [m for _, m in state.masters]
     dp.reduce_gradients([m.grad for m in masters], scalars)
-    scalars["grad_norm"] = torch.nn.utils.clip_grad_norm_(
-        masters, cfg.optim.clip_max_norm)
+    scalars["grad_norm"] = tp.clip_grad_norm_(
+        [m.grad for m in masters],
+        [hasattr(p, "tp_spec") for p, _ in state.masters],
+        cfg.optim.clip_max_norm)
     for group in state.optimizer.param_groups:
         group["lr"] = state.schedules[group["name"]](state.step)
     state.optimizer.step()

@@ -76,9 +76,45 @@ def _layer_indices(tree: Mapping, pattern: str):
     return sorted(found)
 
 
+def _efficientnet(out: _Out, p: Mapping, f: Mapping) -> None:
+    """JAX's EfficientNet (``stage{S}_{B}``, ``se_reduce``, ``se_expand``;
+    stage 1's projection ``conv_pwl``) -> timm's names (``blocks.S-1.B``,
+    ``se.conv_reduce``, ``se.conv_expand``; a DepthwiseSeparable block's
+    projection ``conv_pw``). The norms are FrozenBN statistics in ``f``
+    or GroupNorm scales and biases in ``p``."""
+    base = "backbone.0.body"
+
+    def norm(key, owner_p, owner_f, name):
+        if name in owner_f:
+            out.frozen_bn(key, owner_f[name])
+        else:
+            out.ln(key, owner_p[name])
+
+    out.conv(f"{base}.conv_stem", p["conv_stem"])
+    norm(f"{base}.bn1", p, f, "bn1")
+    for s, b in _layer_indices(p, r"stage(\d+)_(\d+)"):
+        t, name = f"{base}.blocks.{s - 1}.{b}", f"stage{s}_{b}"
+        bp, bf = p[name], f.get(name, {})
+        out.conv(f"{t}.conv_dw", bp["conv_dw"])
+        out.conv(f"{t}.se.conv_reduce", bp["se_reduce"])
+        out.conv(f"{t}.se.conv_expand", bp["se_expand"])
+        if "conv_pw" in bp:                      # InvertedResidual
+            out.conv(f"{t}.conv_pw", bp["conv_pw"])
+            out.conv(f"{t}.conv_pwl", bp["conv_pwl"])
+            for i in (1, 2, 3):
+                norm(f"{t}.bn{i}", bp, bf, f"bn{i}")
+        else:                                    # DepthwiseSeparable
+            out.conv(f"{t}.conv_pw", bp["conv_pwl"])
+            for i in (1, 2):
+                norm(f"{t}.bn{i}", bp, bf, f"bn{i}")
+
+
 def _backbone(out: _Out, params: Mapping, frozen: Mapping) -> None:
     base = "backbone.0.body"
-    p, f = params["backbone"], frozen["backbone"]
+    p, f = params["backbone"], frozen.get("backbone", {})
+    if "conv_stem" in p:
+        _efficientnet(out, p, f)
+        return
     out.conv(f"{base}.conv1", p["conv1"])
     out.frozen_bn(f"{base}.bn1", f["FrozenBN_0"])
     for s, b in _layer_indices(p, r"layer(\d+)_(\d+)"):

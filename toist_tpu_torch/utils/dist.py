@@ -13,9 +13,19 @@ the host has a card of its own; gloo on the CPU, or when ranks share a card
 (NCCL refuses two ranks on one device). Under NCCL a second group, on gloo,
 carries the host's own exchanges (pickled objects, the epoch loop's
 per-step flag), so that they never wait for the card.
+
+A ('data', 'model') grid of ranks (``set_grid``, from
+``parallel/data.make_mesh``) puts rank r at data index r // tp and model
+index r % tp: a model group is tp adjacent ranks, which hold one replica
+between them (tensor parallelism, ``parallel/tp.py``), and a data group is
+the dp ranks of one model index. The collectives below take an ``axis``:
+"data" (the default: the replicas' reductions, over the data group), or
+"model" (over the model group). Without a grid the data axis is every rank
+and the model axis is this rank alone.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, List, Optional
 
@@ -25,6 +35,23 @@ import torch.distributed as dist
 # The group of the host-side exchanges: a gloo group beside an NCCL one,
 # else None (the default group serves).
 _HOST_GROUP: Optional[Any] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place in the ('data', 'model') grid and its groups (a
+    group of None is the default group for the data axis; an axis of
+    extent 1 has no collectives)."""
+    dp: int
+    tp: int
+    data_index: int
+    model_index: int
+    data_group: Any = None
+    model_group: Any = None
+    data_host_group: Any = None       # gloo twin of data_group under NCCL
+
+
+_GRID: Optional[Grid] = None
 
 
 def initialized() -> bool:
@@ -37,6 +64,66 @@ def process_index() -> int:
 
 def process_count() -> int:
     return dist.get_world_size() if initialized() else 1
+
+
+def grid() -> Grid:
+    """The grid set by ``set_grid``; without one, every rank on the data
+    axis."""
+    if _GRID is not None:
+        return _GRID
+    return Grid(process_count(), 1, process_index(), 0,
+                data_host_group=_HOST_GROUP)
+
+
+def data_index() -> int:
+    return grid().data_index
+
+
+def data_count() -> int:
+    return grid().dp
+
+
+def model_index() -> int:
+    return grid().model_index
+
+
+def model_count() -> int:
+    return grid().tp
+
+
+def set_grid(dp: int, tp: int) -> Grid:
+    """Arrange the dp * tp ranks as a (dp, tp) grid and build its groups
+    (every rank builds every group, in one order, as
+    ``torch.distributed.new_group`` needs)."""
+    global _GRID
+    if dp * tp != process_count():
+        raise ValueError(f"grid ({dp}, {tp}) over {process_count()} ranks")
+    if tp == 1:
+        _GRID = None
+        return grid()
+    rank = process_index()
+    host = dist.get_backend() != "gloo"
+    found = {}
+    for axis, groups in (
+            ("model", [[d * tp + m for m in range(tp)] for d in range(dp)]),
+            ("data", [[d * tp + m for d in range(dp)] for m in range(tp)])):
+        for ranks in groups:
+            g = dist.new_group(ranks)
+            gh = dist.new_group(ranks, backend="gloo") if host else g
+            if rank in ranks:
+                found[axis] = (g, gh)
+    _GRID = Grid(dp, tp, rank // tp, rank % tp,
+                 data_group=found["data"][0], model_group=found["model"][0],
+                 data_host_group=found["data"][1])
+    return _GRID
+
+
+def _group(axis: str):
+    """(extent, group) of ``axis``."""
+    g = grid()
+    if axis == "model":
+        return g.tp, g.model_group
+    return g.dp, g.data_group
 
 
 def init_distributed(device="cuda") -> torch.device:
@@ -74,35 +161,44 @@ def init_distributed(device="cuda") -> torch.device:
 
 def destroy() -> None:
     """Leave the process group (a no-op without one)."""
-    global _HOST_GROUP
+    global _HOST_GROUP, _GRID
     if initialized():
         dist.destroy_process_group()
-    _HOST_GROUP = None
+    _HOST_GROUP = _GRID = None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks, in place."""
-    if initialized():
-        dist.all_reduce(t)
+def all_reduce_sum(t: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """``t`` summed over ``axis``'s group, in place."""
+    n, group = _group(axis)
+    if initialized() and n > 1:
+        dist.all_reduce(t, group=group)
     return t
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """[B, ...] of every rank -> [world * B, ...], in rank order (the
-    global batch order of ``make_array_from_process_local_data``)."""
-    if not initialized():
+def all_gather_rows(t: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """[B, ...] of every rank of ``axis``'s group -> [n * B, ...], in
+    group order (on the data axis the global batch order of
+    ``make_array_from_process_local_data``)."""
+    n, group = _group(axis)
+    if not initialized() or n == 1:
         return t
-    parts = [torch.empty_like(t) for _ in range(process_count())]
-    dist.all_gather(parts, t.contiguous())
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
 
 
-def all_gather_object(obj: Any) -> List[Any]:
-    """Every rank's picklable ``obj``, in rank order."""
+def all_gather_object(obj: Any, axis: Optional[str] = None) -> List[Any]:
+    """Every rank's picklable ``obj``, in rank order (``axis`` None), or
+    every rank's of this rank's data group, in data order."""
     if not initialized():
         return [obj]
-    out: List[Any] = [None] * process_count()
-    dist.all_gather_object(out, obj, group=_HOST_GROUP)
+    n, group = process_count(), _HOST_GROUP
+    if axis == "data":
+        n, group = data_count(), grid().data_host_group
+    out: List[Any] = [None] * n
+    if n == 1:
+        return [obj]
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
