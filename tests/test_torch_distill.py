@@ -30,6 +30,7 @@ from toist_tpu.ops.lsa import solve_lsa
 from toist_tpu.train import cluster as jcl
 from toist_tpu.train import criterion as jcrit
 from toist_tpu.train import distill as jdistill
+from toist_tpu.train import optim as joptim
 from toist_tpu.train.state import TrainState as JTrainState
 from toist_tpu.utils.convert import (convert_torch_state_dict,
                                      synth_reference_state_dict)
@@ -521,3 +522,104 @@ def test_cluster_eval_step_matches_jax(dual, eval_losses):
     for k, v in want["scalars"].items():
         np.testing.assert_allclose(float(got["scalars"][k]), float(v),
                                    rtol=1e-4, err_msg=k)
+
+
+def _fixture_pairs(root, n=5):
+    """``n`` paired batches of 2 from the port's own fixture pipeline, as
+    ``main`` builds them for distillation (noun and sth captions of the
+    same images), on the 128x128 canvas of the fixture ablation."""
+    from toist_tpu_torch.data.batcher import BatchIterator, BucketSpec
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.data.cocotasks import build_task_dataset
+    from toist_tpu_torch.data.fixtures import generate_fixture
+
+    generate_fixture(root, num_tasks=2, imgs_per_split=n, img_size=(96, 128),
+                     seed=11)
+    cfg = pconfig.Config.from_sources(None, {"data": {
+        "coco_path": root, "refexp_ann_path": f"{root}/annotations",
+        "tasks": [1, 2], "image_buckets": [[128, 128]], "max_text_len": 48,
+        "max_boxes": 8, "train_scales": [96], "max_size": 128}})
+    tok = build_tokenizer(cfg)
+    assert tok.vocab_size <= 600                    # TINY's embeddings
+    sets = [build_task_dataset(cfg.data, t, "train", tok, distillation=True)
+            for t in (1, 2)]
+    spec = BucketSpec(buckets=[[128, 128]], max_text_len=48, max_boxes=8,
+                      num_logit_cols=cfg.data.num_logit_cols)
+    it = BatchIterator(sets, spec, batch_size=2, seed=1, paired=True,
+                       num_workers=1)
+    batches = list(it.epoch(0))
+    assert len(batches) == n
+    return batches
+
+
+def test_distillation_steps_track_jax(dual, tmp_path):
+    """Five distillation steps in a row, port vs JAX, from the same weights
+    (``synth_reference_state_dict``), the same five paired fixture batches
+    and the same bank, f32 at dropout 0, each side with its own AdamW at
+    the config's defaults (the reference's learning rates and clip, over
+    both models): after every step the total and per-term
+    losses within 1e-4 relative, both models' parameters within 2e-3 of
+    each tensor's max abs, and the bank (counts and flags exactly). One
+    step cannot show a fault that only compounds, such as a moment or a
+    bank update that drifts.
+
+    The teacher's no-object logit bias is raised by 4, the prior a trained
+    detector learns: between two random models the softkd KL is about
+    2e-5, a difference of near-equal probabilities in which f32 rounding
+    alone moves the value by 1e-3 relative."""
+    cfg = Config(model=TINY, loss=LossConfig(**DIS_LOSS),
+                 optim=OptimConfig(ema=False))
+    wd = jcrit.build_weight_dict(cfg.loss, False, 2)
+    batches = _fixture_pairs(str(tmp_path / "fixture"))
+    jmodel = build_model(TINY, text_vocab_size=600, tiny_text=True,
+                         backbone_norm="frozen_bn")
+    tsd = synth_reference_state_dict(seed=7, **_TINY_SD)
+    tsd["class_embed.bias"][-1] += 4.0
+    tp, tf = convert_torch_state_dict(tsd, d_model=64, enc_layers=2,
+                                      dec_layers=2, stage_sizes=(1, 1, 1, 1))
+    dual = dict(dual, teacher=(jax_params_to_state_dict(tp, tf), tp, tf))
+    _, sp, sf = dual["student"]
+    tx = joptim.make_optimizer(cfg.optim, 10, 100)
+    jstate = JTrainState(params=sp, opt_state=tx.init({"student": sp,
+                                                       "teacher": tp}),
+                         ema_params=None, step=jnp.int32(0),
+                         teacher_params=tp, teacher_ema_params=None,
+                         cluster_bank=_bank())
+    jstep = jdistill.make_distillation_train_step(jmodel, cfg, wd, tx, sf, tf)
+
+    pcfg = pconfig.Config(model=PTINY, loss=pconfig.LossConfig(**DIS_LOSS),
+                          optim=pconfig.OptimConfig(ema=False))
+    state = _port_dual_state(dual, pcfg, cluster_bank_from_jax(_bank()))
+    pstep = make_distillation_train_step(pcfg, wd)
+    terms = ("loss", "loss_softkd", "loss_nsthl2", "loss_cluster_feature",
+             "noun_loss_ce", "sth_loss_ce", "sth_loss_bbox")
+    for i, batch in enumerate(batches):
+        jstate, jsc = jstep(jstate, {s: {k: jnp.asarray(v) for k, v in
+                                         b.items()}
+                                     for s, b in batch.items()},
+                            jax.random.PRNGKey(i))
+        state, sc = pstep(state, batch)
+        for k in terms:
+            np.testing.assert_allclose(float(sc[k]), float(jsc[k]),
+                                       rtol=1e-4, err_msg=f"step {i} {k}")
+        bad = []
+        for who, teacher, params, frozen in (
+                ("student", False, jstate.params, sf),
+                ("teacher", True, jstate.teacher_params, tf)):
+            want = jax_params_to_state_dict(params, frozen)
+            for n, _, m in model_masters(state, teacher):
+                w = want[n].numpy()
+                err = np.abs(m.detach().numpy() - w).max()
+                if not err <= 2e-3 * max(np.abs(w).max(), 1e-8):
+                    bad.append((i, who, n, float(err)))
+        assert not bad, bad
+        bank, jbank = state.cluster_bank, jstate.cluster_bank
+        for f in ("update_count", "full"):
+            np.testing.assert_array_equal(getattr(bank, f).numpy(),
+                                          np.asarray(getattr(jbank, f)))
+        for f in ("feature_bank", "cluster_centers"):
+            w = np.asarray(getattr(jbank, f))
+            np.testing.assert_allclose(getattr(bank, f).numpy(), w,
+                                       atol=2e-3 * np.abs(w).max(),
+                                       err_msg=f"step {i} {f}")
+    assert state.step == 5 and int(jstate.step) == 5

@@ -40,11 +40,14 @@ its data group's batches. ``run.pretrained_backbone`` /
 ``run.pretrained_text`` load torchvision, timm or Hugging Face files into
 a fresh model (``utils/pretrained.py``), before ``--load`` and
 ``--resume``; ``run.profile_dir`` traces the first epoch
-(``utils/profiling.py``).
+(``utils/profiling.py``). A ``model.compute_dtype=float32`` run computes
+in f32 on the card: TF32 is off for its convolutions and products
+(``f32_policy``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -121,10 +124,31 @@ def main(cfg: Config, device="cuda") -> Optional[float]:
     (``utils/dist.init_distributed``) and leaves at the end."""
     own_group = not dist.initialized()
     try:
-        return _main(cfg, dist.init_distributed(device))
+        with f32_policy(cfg.model.compute_dtype):
+            return _main(cfg, dist.init_distributed(device))
     finally:
         if own_group:
             dist.destroy()
+
+
+@contextlib.contextmanager
+def f32_policy(compute_dtype: str):
+    """A ``float32`` run computes in f32 on the card, as the JAX package
+    does: cuDNN convolutions and cuBLAS products default to TF32 there, so
+    both are turned off for the run and restored after it. A ``bfloat16``
+    run keeps the defaults."""
+    if compute_dtype != "float32":
+        yield
+        return
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    was = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, w in zip(flags, was):
+            f.allow_tf32 = w
 
 
 def _main(cfg: Config, device: torch.device) -> Optional[float]:
@@ -203,10 +227,12 @@ def _main(cfg: Config, device: torch.device) -> Optional[float]:
                 if m is not None:
                     tp.shard_model(m, shard)
         if cfg.loss.cluster:
-            bank = init_bank(len(TASKS), cfg.loss.cluster_memory_size,
-                             cfg.loss.cluster_num, cfg.model.hidden_dim,
-                             torch.Generator(device).manual_seed(
-                                 cfg.run.seed))
+            # A converted JAX checkpoint's bank, else a fresh one.
+            bank = (cfg.run.load and ckpt.load_jax_cluster_bank(
+                cfg.run.load, device)) or init_bank(
+                    len(TASKS), cfg.loss.cluster_memory_size,
+                    cfg.loss.cluster_num, cfg.model.hidden_dim,
+                    torch.Generator(device).manual_seed(cfg.run.seed))
         # The f32 weights outlive the cast below: they become the masters.
         weights = model.state_dict()
         model.to_compute_dtype()

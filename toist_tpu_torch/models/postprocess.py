@@ -16,8 +16,14 @@ Counterpart of ``toist_tpu/models/postprocess.py``:
   the host assembles the RLEs. The JAX package runs this part in XLA, not
   Pallas, so it has no kernel of its own here. Its jitted version needs a
   static canvas (640x640) and sends a batch with a larger original to a
-  PIL host path; here every batch stays on the device, and such a batch
-  gives the same RLEs except at pixels whose logit lies at the threshold.
+  PIL host path; here every batch of the eval stays on the device, and
+  such a batch gives the same RLEs except at pixels whose logit lies at
+  the threshold;
+- ``postprocess_masks_host``: that PIL host path, which ``visualize``
+  draws its masks from, as the JAX package's does. PIL's bilinear equals
+  ``F.interpolate`` on upscales (the stride-4 logits to the original) and
+  antialiases on downscales, where a few pixels of a mask differ from the
+  device path's.
 """
 from __future__ import annotations
 
@@ -54,6 +60,59 @@ def postprocess_boxes(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     w = orig_sizes[:, 1].float()
     scale = torch.stack([w, h, w, h], dim=1)[:, None, :]
     return {"scores": scores, "labels": labels, "boxes": boxes * scale}
+
+
+def _interp_matrix(o: int, s: int, transpose: bool = False) -> np.ndarray:
+    """Bilinear-interpolation matrix W with W @ v resampling length-s
+    signals to length o: torch ``F.interpolate(mode="bilinear",
+    align_corners=False, antialias=False)``, the reference's PostProcessSegm
+    interpolation (postprocessors.py:98-104), as a dense [o, s] matrix of
+    two taps per row (``_interp_vectors``'s arithmetic)."""
+    i0, i1, w0, w1 = _interp_vectors(o, s)
+    W = np.zeros((o, s), np.float32)
+    W[np.arange(o), i0] += w0
+    W[np.arange(o), i1] += w1
+    return W.T if transpose else W
+
+
+def _bilinear_resize_qhw(m: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """Bilinear resize of [Q, h, w] -> [Q, oh, ow] with ``F.interpolate``'s
+    arithmetic (``_interp_matrix``)."""
+    _, h, w = m.shape
+    return _interp_matrix(oh, h) @ m @ _interp_matrix(ow, w, transpose=True)
+
+
+def postprocess_masks_host(pred_masks, sizes, orig_sizes, sample_valid):
+    """Host PostProcessSegm (reference postprocessors.py:59-109), the JAX
+    package's ``postprocess_masks_host``: per valid sample, each query's
+    stride-4 logits cropped to the unpadded size, resized to the original
+    by PIL bilinear, thresholded at sigmoid 0.5 (logit 0) and RLE-encoded.
+    PIL resizes one mask in a fraction of the time two-tap gathers or
+    ``_bilinear_resize_qhw`` take on a CPU; on an upscale it has
+    ``F.interpolate``'s half-pixel arithmetic, on a downscale it
+    antialiases. pred_masks: [B, Q, h4, w4] logits on any device; returns
+    per-sample lists of RLE dicts (None for invalid samples)."""
+    from PIL import Image
+
+    if isinstance(pred_masks, torch.Tensor):
+        pred_masks = pred_masks.detach().float().cpu().numpy()
+    pred_masks = np.asarray(pred_masks, dtype=np.float32)
+    out = []
+    for b in range(pred_masks.shape[0]):
+        if not sample_valid[b]:
+            out.append(None)
+            continue
+        ih, iw = int(sizes[b][0]), int(sizes[b][1])
+        oh, ow = int(orig_sizes[b][0]), int(orig_sizes[b][1])
+        ch, cw = max(1, ih // MASK_STRIDE), max(1, iw // MASK_STRIDE)
+        rles = []
+        for q in range(pred_masks.shape[1]):
+            img = Image.fromarray(
+                np.ascontiguousarray(pred_masks[b, q, :ch, :cw]), mode="F")
+            m_up = np.asarray(img.resize((ow, oh), Image.BILINEAR))
+            rles.append(rle_ops.encode((m_up > 0.0).astype(np.uint8)))
+        out.append(rles)
+    return out
 
 
 def _interp_vectors(o: int, s: int):

@@ -13,24 +13,33 @@ The val split is a mirror of the train split (the same images and
 annotations): a 3-layer 64-wide model on 8 synthetic images generalises by
 noise, while its progress on what it trains on is signal. Both students
 share the init (``run.seed`` 1), the epochs and the deterministic config
-(dropout 0). Three trainings:
+(dropout 0). The trainings run f32 (``main.f32_policy``: no TF32) under
+``torch.use_deterministic_algorithms``, as the JAX package's runs are
+deterministic by construction: on the card, cuDNN's f32 weight-gradient
+algorithms otherwise differ between processes, and so did the APs. The
+result carries a digest of each training's checkpoint, so that two
+processes can be held to bit-equal trainings. Three trainings:
 
 1. the verb-noun teacher (``data.verb_noun_input``);
 2. the plain pronoun student;
 3. the distilled pronoun student, its teacher through ``run.load_noun``.
 
 Run:  python -m toist_tpu_torch.scripts.fixture_distill_ablation \\
-          [--epochs 6] [--device cuda|cpu] [--workdir D] [--out f.json]
+          [--epochs 6] [--device cuda|cpu] [--fixture-seed 11]
+          [--workdir D] [--out f.json]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import os
 import shutil
 import tempfile
 
 EPOCHS = 6
+FIXTURE_SEED = 11
 
 
 def mirror_val_to_train(root: str, tasks) -> None:
@@ -82,36 +91,89 @@ def last_eval_ap(out_dir: str) -> float:
                  ["mean_ap50"])
 
 
-def run(workdir: str, epochs: int = EPOCHS, device: str = "cuda") -> dict:
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for the block (an op with no
+    deterministic form raises), with the fixed cuBLAS workspace it needs."""
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def checkpoint_digest(path: str) -> str:
+    """blake2b of every tensor of a checkpoint (weights, EMA, moments, the
+    bank), in key order; the config it carries is left out, since it names
+    the output directory."""
+    import torch
+
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    h = hashlib.blake2b(digest_size=16)
+
+    def walk(key, x):
+        if isinstance(x, dict):
+            for k in sorted(x, key=str):
+                if k != "args":
+                    walk(f"{key}/{k}", x[k])
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{key}/{i}", v)
+        elif isinstance(x, torch.Tensor):
+            t = x.detach().contiguous()
+            if t.dtype in (torch.bfloat16, torch.bool):
+                t = t.view(torch.int16 if t.dtype == torch.bfloat16
+                           else torch.uint8)
+            h.update(key.encode())
+            h.update(t.numpy().tobytes())
+        else:
+            h.update(f"{key}={x!r}".encode())
+
+    walk("", payload)
+    return h.hexdigest()
+
+
+def run(workdir: str, epochs: int = EPOCHS, device: str = "cuda",
+        fixture_seed: int = FIXTURE_SEED) -> dict:
     from toist_tpu_torch.data.fixtures import generate_fixture
     from toist_tpu_torch.main import main
 
     root = generate_fixture(os.path.join(workdir, "data"), num_tasks=2,
-                            imgs_per_split=4, img_size=(96, 128), seed=11)
+                            imgs_per_split=4, img_size=(96, 128),
+                            seed=fixture_seed)
     mirror_val_to_train(root, (1, 2))
 
-    # 1. Teacher on privileged noun captions (scripts/train_dete_noun.sh).
-    tdir = os.path.join(workdir, "teacher")
-    main(base_config(root, tdir, seed=0, epochs=epochs,
-                     data={"verb_noun_input": True}), device=device)
-    # 2. Plain pronoun student (scripts/train_dete.sh).
-    pdir = os.path.join(workdir, "plain")
-    main(base_config(root, pdir, seed=1, epochs=epochs), device=device)
-    # 3. Distilled pronoun student: the same init and epochs, the teacher
-    #    from step 1 (scripts/train_dete_dis.sh).
-    ddir = os.path.join(workdir, "distill")
-    main(base_config(
-        root, ddir, seed=1, epochs=epochs,
-        run={"load_noun": os.path.join(tdir, "checkpoint")},
-        loss={"distillation": True, "softkd_loss": True, "softkd_coef": 50.0,
-              "nsthl2_loss": True, "nsthl2_coef": 1.0, "cluster": True,
-              "cluster_memory_size": 16, "cluster_num": 2,
-              "kmeans_max_iters": 8}), device=device)
+    tdir, pdir, ddir = (os.path.join(workdir, d)
+                        for d in ("teacher", "plain", "distill"))
+    with deterministic():
+        # 1. Teacher on privileged noun captions
+        #    (scripts/train_dete_noun.sh).
+        main(base_config(root, tdir, seed=0, epochs=epochs,
+                         data={"verb_noun_input": True}), device=device)
+        # 2. Plain pronoun student (scripts/train_dete.sh).
+        main(base_config(root, pdir, seed=1, epochs=epochs), device=device)
+        # 3. Distilled pronoun student: the same init and epochs, the
+        #    teacher from step 1 (scripts/train_dete_dis.sh).
+        main(base_config(
+            root, ddir, seed=1, epochs=epochs,
+            run={"load_noun": os.path.join(tdir, "checkpoint")},
+            loss={"distillation": True, "softkd_loss": True,
+                  "softkd_coef": 50.0, "nsthl2_loss": True,
+                  "nsthl2_coef": 1.0, "cluster": True,
+                  "cluster_memory_size": 16, "cluster_num": 2,
+                  "kmeans_max_iters": 8}), device=device)
     teacher, plain, distill = (last_eval_ap(d) for d in (tdir, pdir, ddir))
     return {"teacher_ap50": teacher, "plain_student_ap50": plain,
             "distill_student_ap50": distill,
             "distill_minus_plain": distill - plain, "epochs": epochs,
-            "device": device}
+            "device": device, "fixture_seed": fixture_seed,
+            "digests": {k: checkpoint_digest(os.path.join(d, "checkpoint"))
+                        for k, d in (("teacher", tdir), ("plain", pdir),
+                                     ("distill", ddir))}}
 
 
 def main_cli(argv=None) -> dict:
@@ -121,9 +183,11 @@ def main_cli(argv=None) -> dict:
     p.add_argument("--epochs", type=int, default=EPOCHS)
     p.add_argument("--device", default="cuda",
                    help="torch device of the three trainings (cpu: no card)")
+    p.add_argument("--fixture-seed", type=int, default=FIXTURE_SEED)
     args = p.parse_args(argv)
     wd = args.workdir or tempfile.mkdtemp(prefix="toist_distill_abl_")
-    res = run(wd, epochs=args.epochs, device=args.device)
+    res = run(wd, epochs=args.epochs, device=args.device,
+              fixture_seed=args.fixture_seed)
     print(json.dumps(res), flush=True)
     if args.out:
         with open(args.out, "w") as f:

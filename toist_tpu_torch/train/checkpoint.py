@@ -16,10 +16,12 @@ TrainState through orbax; the port writes the reference's own payload
   (SURVEY.md:324-327), and ``cluster_criterion``, the bank's four tensors.
 
 So a port checkpoint is a reference ``.pth``: ``utils/convert.
-load_reference_checkpoint`` of either package reads it. A file is written
-under a temporary name and renamed into place, so a cut run never leaves
-half a file. The three load modes map to ``restore`` (--resume),
-``load_params`` (--load warm start, EMA preferred) and ``merge_params``.
+load_reference_checkpoint`` of either package reads it. ``load_params``
+also reads a JAX package's checkpoint converted to an ``.npz`` by
+``scripts/jax_checkpoint_to_npz.py``. A file is written under a temporary
+name and renamed into place, so a cut run never leaves half a file. The
+three load modes map to ``restore`` (--resume), ``load_params`` (--load
+warm start, EMA preferred) and ``merge_params``.
 
 Across ranks every rank calls ``save``, as JAX's ``main`` does
 (``toist_tpu/main.py:358-372``): a ZeRO-1 optimizer's shards are gathered
@@ -49,7 +51,9 @@ from toist_tpu_torch.parallel import tp
 from toist_tpu_torch.train.cluster import ClusterBank
 from toist_tpu_torch.train.state import (TrainState, init_train_state,
                                          load_masters, model_masters)
-from toist_tpu_torch.utils.convert import load_reference_checkpoint
+from toist_tpu_torch.utils.convert import (cluster_bank_from_jax,
+                                          jax_params_to_state_dict,
+                                          load_reference_checkpoint)
 from toist_tpu_torch.utils import dist
 
 # One record per finished write: path, bytes, copy_s (device -> host, on the
@@ -229,8 +233,43 @@ def load_params(path: str, prefer_ema: bool = True
                 ) -> Dict[str, torch.Tensor]:
     """Weights-only warm start (--load, main.py:456-473, and the teacher's
     --load_noun: EMA key preferred): the checkpoint's reference-layout
-    state dict."""
-    return load_reference_checkpoint(path, prefer_ema=prefer_ema)
+    state dict. ``path`` is a reference ``.pth`` (the port's own too) or
+    a JAX package's checkpoint that ``scripts/jax_checkpoint_to_npz.py``
+    converted, whose params go through ``jax_params_to_state_dict``."""
+    if not path.endswith(".npz"):
+        return load_reference_checkpoint(path, prefer_ema=prefer_ema)
+    tree = _read_npz(path)
+    params = tree.get("ema_params") if prefer_ema else None
+    return jax_params_to_state_dict(
+        params if params is not None else tree["params"], tree["frozen"])
+
+
+def load_jax_cluster_bank(path: str, device) -> Optional[ClusterBank]:
+    """The cluster bank of a converted JAX checkpoint (``.npz``), on
+    ``device``; None for any other file or a run without a bank. A JAX run
+    cannot be resumed here, so ``--load`` of its ``.npz`` is how its
+    distilled student is evaluated, and the cluster eval needs the bank
+    the run built."""
+    if not path.endswith(".npz"):
+        return None
+    bank = _read_npz(path).get("cluster_bank")
+    return (cluster_bank_from_jax(argparse.Namespace(**bank), device)
+            if bank is not None else None)
+
+
+def _read_npz(path: str) -> Dict[str, Any]:
+    """The nested dict of a ``.npz`` with '/'-joined keys."""
+    import numpy as np
+
+    tree: Dict[str, Any] = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = z[key]
+    return tree
 
 
 def merge_params(init_tree: Any, loaded_tree: Any) -> Any:

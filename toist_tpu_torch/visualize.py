@@ -12,8 +12,9 @@ left, the predictions on the right. The model is the checkpoint of
 Drawing is numpy on the RGB image (no OpenCV): a mask is blended at alpha
 0.45 as ``cv2.addWeighted`` rounds it (one fused multiply-add in f32), and
 a box is outlined as ``cv2.rectangle`` draws thickness 2: every pixel
-within distance 1 of the rectangle's edges. The masks come from the
-device mask postprocess (``models/postprocess.postprocess_masks_device``).
+within distance 1 of the rectangle's edges. The masks come from the host
+mask postprocess (``models/postprocess.postprocess_masks_host``, PIL
+bilinear), as the JAX package's do.
 
 Run: python -m toist_tpu_torch.visualize --config c.json --resume ckpt
          --output-dir vis_dir [--set k=v ...] [--device cpu]
@@ -102,7 +103,7 @@ def visualize(cfg: Config, out_dir: str, score_threshold: float = 0.95,
     from toist_tpu_torch.data.captions import build_tokenizer
     from toist_tpu_torch.data.cocotasks import build_task_dataset
     from toist_tpu_torch.main import build_specs
-    from toist_tpu_torch.models.postprocess import postprocess_masks_device
+    from toist_tpu_torch.models.postprocess import postprocess_masks_host
     from toist_tpu_torch.ops import rle as rle_ops
     from toist_tpu_torch.train.step import eval_forward
 
@@ -129,7 +130,7 @@ def visualize(cfg: Config, out_dir: str, score_threshold: float = 0.95,
             pred_boxes = post["boxes"][0][keep].cpu().numpy()
             pred_masks = None
             if cfg.model.masks and "pred_masks" in out:
-                rles = postprocess_masks_device(
+                rles = postprocess_masks_host(
                     out["pred_masks"][:, keep.to(out["pred_masks"].device)],
                     batch["size"], batch["orig_size"],
                     batch["sample_valid"])
