@@ -1,0 +1,9 @@
+"""``idle_in_issue.serve``.
+
+% of the device's idle time in which the host was issuing work.
+"""
+from benchmark import spans
+
+
+def read(run):
+    return spans.idle_in_issue(run, "serve")

@@ -10,7 +10,9 @@ the command line) gives the last in-run eval's per-task stats exactly, and
 (a random model's AP at this size is mostly 0, so the detections are what
 shows that the same weights came back).
 ``parse_args`` gives the JAX ``parse_args``'s config on the same argv; a
-('data', 'model') grid, ``run.profile_dir`` and the pretrained files run. Distillation with softkd,
+('data', 'model') grid, ``run.profile_dir`` (on a training run and on an
+``eval_only`` one; the trace holds the eval's spans) and the pretrained
+files run. Distillation with softkd,
 nsthl2 and the cluster bank, its teacher through ``run.load_noun``: one
 epoch writes the distillation checkpoint and evaluates with the cluster
 snapping; ``--eval --resume`` restores the state bit for bit and gives the
@@ -191,6 +193,35 @@ def _pretrained_file(path, cfg, prefix, seed):
     return sd
 
 
+def _trace_spans(path):
+    """The names of the ``toist.*`` ranges in a gzipped Chrome trace."""
+    import gzip
+
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "user_annotation"
+            and e["name"].startswith("toist.")}
+
+
+def test_profile_dir_traces_an_eval_only_run(tmp_path, capsys):
+    """``run.profile_dir`` on an ``eval_only`` run traces the eval: its
+    trace and ``[profile]`` line hold ``toist.eval_step`` and no training
+    step."""
+    root = generate_fixture(str(tmp_path / "data"), num_tasks=2,
+                            imgs_per_split=2, img_size=(96, 128), seed=1)
+    over = _overrides(root, str(tmp_path / "out"), "frozen_bn")
+    over["run"].update(eval_only=True, output_dir="",
+                       profile_dir=str(tmp_path / "trace"))
+    assert np.isfinite(main(Config.from_sources(None, over), device="cpu"))
+    traces = os.listdir(str(tmp_path / "trace"))
+    assert len(traces) == 1
+    names = _trace_spans(os.path.join(str(tmp_path / "trace"), traces[0]))
+    assert "toist.eval_step" in names and "toist.train_step" not in names
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[profile] ")]
+    assert len(line) == 1 and "toist.eval_step " in line[0]
+
+
 @pytest.mark.parametrize("mode", [
     ("run", "mesh_axes", ["data", "model"]), ("run", "profile_dir", "trace"),
     ("run", "pretrained_backbone", "r101.pth"),
@@ -241,7 +272,13 @@ def test_unported_modes_raise(tmp_path, monkeypatch, capsys, mode):
     elif key == "profile_dir":
         traces = os.listdir(str(tmp_path / val))
         assert len(traces) == 1 and traces[0].endswith(".json.gz")
-        assert "[profile] " in capsys.readouterr().out
+        names = _trace_spans(os.path.join(str(tmp_path / val), traces[0]))
+        assert {"toist.train_step", "toist.eval_step"} <= names
+        line = [ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[profile] ")]
+        assert len(line) == 1
+        assert "toist.train_step " in line[0]
+        assert "toist.eval_step " in line[0]
     else:
         sd = models[0].state_dict()
         for k, v in want.items():

@@ -232,7 +232,7 @@ class RunConfig:
     pretrained_text: str = ""            # HF roberta-base state_dict
     start_epoch: int = 0
     eval_only: bool = False
-    profile_dir: str = ""                # jax.profiler trace of the first epoch
+    profile_dir: str = ""                # torch.profiler trace: epoch 0 + eval
     # Mesh: data parallelism is the reference's only strategy (SURVEY.md §2.2).
     # A 2-D mesh adds Megatron-style tensor parallelism over 'model'
     # (parallel/tp.py): mesh_shape=(-1, tp), mesh_axes=("data", "model").

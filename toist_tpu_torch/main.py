@@ -39,10 +39,10 @@ group of tp ranks holds one replica sharded by ``parallel/tp.py`` and runs
 its data group's batches. ``run.pretrained_backbone`` /
 ``run.pretrained_text`` load torchvision, timm or Hugging Face files into
 a fresh model (``utils/pretrained.py``), before ``--load`` and
-``--resume``; ``run.profile_dir`` traces the first epoch
-(``utils/profiling.py``). A ``model.compute_dtype=float32`` run computes
-in f32 on the card: TF32 is off for its convolutions and products
-(``f32_policy``).
+``--resume``; ``run.profile_dir`` traces the first epoch, its eval
+included, or the eval of an ``eval_only`` run (``utils/profiling.py``).
+A ``model.compute_dtype=float32`` run computes in f32 on the card: TF32
+is off for its convolutions and products (``f32_policy``).
 """
 from __future__ import annotations
 
@@ -287,29 +287,33 @@ def _main(cfg: Config, device: torch.device) -> Optional[float]:
         return m
 
     if cfg.run.eval_only:
-        return run_eval()
+        with trace(cfg.run.profile_dir):
+            return run_eval()
 
     train_step = (make_distillation_train_step if cfg.loss.distillation
                   else make_train_step)(cfg, weight_dict)
     best_map = -1.0
     for epoch in range(start_epoch, cfg.optim.epochs):
         t0 = time.time()
+        # The first epoch's trace holds its eval too (toist.eval_step).
         with trace(cfg.run.profile_dir if epoch == start_epoch else None):
             state, train_stats = engine.train_one_epoch(
                 train_step, state, train_iter, epoch, jsonl=jsonl, tb=tb)
-        jsonl.write({"kind": "epoch", "epoch": epoch,
-                     "seconds": time.time() - t0, **train_stats})
-        if cfg.run.output_dir:
-            ckpt.save(os.path.join(cfg.run.output_dir, "checkpoint"), state,
-                      epoch, async_save=cfg.run.async_checkpoint,
-                      args=cfg.to_dict())
-        if epoch % cfg.optim.eval_skip == 0:
-            m = run_eval(epoch=epoch)
-            if m > best_map and cfg.run.output_dir:
-                best_map = m
-                ckpt.save(os.path.join(cfg.run.output_dir, "BEST_checkpoint"),
+            jsonl.write({"kind": "epoch", "epoch": epoch,
+                         "seconds": time.time() - t0, **train_stats})
+            if cfg.run.output_dir:
+                ckpt.save(os.path.join(cfg.run.output_dir, "checkpoint"),
                           state, epoch, async_save=cfg.run.async_checkpoint,
                           args=cfg.to_dict())
+            if epoch % cfg.optim.eval_skip == 0:
+                m = run_eval(epoch=epoch)
+                if m > best_map and cfg.run.output_dir:
+                    best_map = m
+                    ckpt.save(os.path.join(cfg.run.output_dir,
+                                           "BEST_checkpoint"),
+                              state, epoch,
+                              async_save=cfg.run.async_checkpoint,
+                              args=cfg.to_dict())
     ckpt.wait_for_async_saves()
     return best_map
 

@@ -35,6 +35,7 @@ import torch
 
 from toist_tpu_torch.ops import box_ops
 from toist_tpu_torch.ops import rle as rle_ops
+from toist_tpu_torch.utils.tracing import spanned
 from toist_tpu_torch.utils.transfer import finish_to_host, start_to_host
 
 # The mask logits' stride on the padded canvas.
@@ -48,6 +49,7 @@ MAX_COL_TRANSITIONS = 8
 MAX_CHUNK_PIXELS = 4 * 100 * 640 * 640
 
 
+@spanned("toist.postprocess")
 def postprocess_boxes(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                       orig_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[B,Q,C] logits, [B,Q,4] cxcywh, [B,2] (h,w) -> scores/labels/boxes."""

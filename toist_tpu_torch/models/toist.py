@@ -41,6 +41,7 @@ from toist_tpu_torch.models.resnet import Backbone, downsample_mask
 from toist_tpu_torch.models.segmentation import (MaskHeadSmallConv,
                                                  MHAttentionMap)
 from toist_tpu_torch.models.text_encoder import RobertaEncoder
+from toist_tpu_torch.utils.tracing import spanned
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -140,6 +141,7 @@ class TOIST(nn.Module):
             self.mask_head.out_lay.float()
         return self
 
+    @spanned("toist.encode")
     def encode(self, images: torch.Tensor, image_mask: torch.Tensor,
                text_ids: torch.Tensor, text_mask: torch.Tensor,
                generator: Optional[torch.Generator] = None
@@ -204,6 +206,7 @@ class TOIST(nn.Module):
             cache["img_pooled_op"] = img_memory[:, 0]
         return cache
 
+    @spanned("toist.decode")
     def decode(self, memory_cache: Dict[str, torch.Tensor],
                use_modified_memory: bool = False,
                generator: Optional[torch.Generator] = None

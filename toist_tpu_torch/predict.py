@@ -31,6 +31,7 @@ from toist_tpu_torch.data.captions import build_tokenizer, task_caption
 from toist_tpu_torch.models.postprocess import postprocess_masks_device
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.train.step import eval_forward
+from toist_tpu_torch.utils.tracing import span, spanned
 
 
 class Predictor:
@@ -112,6 +113,7 @@ class Predictor:
                              f"{self.spec.buckets}")
         return bi
 
+    @spanned("toist.predict")
     def predict_batch(self, batch: Mapping[str, np.ndarray]
                       ) -> List[Dict[str, np.ndarray]]:
         """Run one collated batch; one result per valid row, boxes sorted by
@@ -123,8 +125,9 @@ class Predictor:
             masks = postprocess_masks_device(
                 out["pred_masks"], batch["size"], batch["orig_size"],
                 batch["sample_valid"])
-        scores = post["scores"].cpu().numpy()
-        boxes = post["boxes"].cpu().numpy()
+        with span("toist.d2h"):
+            scores = post["scores"].cpu().numpy()
+            boxes = post["boxes"].cpu().numpy()
         results = []
         for row in np.flatnonzero(batch["sample_valid"]):
             sc = scores[row]

@@ -40,6 +40,7 @@ import torch
 
 from toist_tpu_torch.ops.kmeans import kmeans, kmeans_predict
 from toist_tpu_torch.utils import dist
+from toist_tpu_torch.utils.tracing import spanned
 
 
 @dataclasses.dataclass
@@ -187,6 +188,7 @@ def snap_text_memory(img_memory: torch.Tensor, text_len: int,
     return torch.cat([img_memory[:, :S - text_len], text_mod], 1)
 
 
+@spanned("toist.bank")
 def teacher_update_and_snap(bank: ClusterBank,
                             cache: Mapping[str, torch.Tensor],
                             batch: Mapping[str, torch.Tensor],
@@ -217,6 +219,7 @@ def teacher_update_and_snap(bank: ClusterBank,
     return bank, mod, {"choices": choices, "pooled": pooled, "valid": valid}
 
 
+@spanned("toist.bank")
 def student_cluster(bank: ClusterBank, cache: Mapping[str, torch.Tensor],
                     batch: Mapping[str, torch.Tensor], max_iters: int = 32,
                     tol: float = 1e-4, train: bool = True,

@@ -38,6 +38,7 @@ from toist_tpu_torch.ops.matching import (hungarian_match_levels,
                                           query_is_matched)
 from toist_tpu_torch.train.cluster import (caption_span_mask,
                                            pool_span_features)
+from toist_tpu_torch.utils.tracing import spanned
 
 
 def _gather_queries(arr: torch.Tensor, tgt2query: torch.Tensor
@@ -211,6 +212,7 @@ def mask_losses(pred_masks_sel: torch.Tensor, gt_masks: torch.Tensor,
             "loss_dice": dice_loss(src, tgt, v, num_boxes)}
 
 
+@spanned("toist.criterion")
 def set_criterion(outputs: Mapping[str, torch.Tensor],
                   batch: Mapping[str, torch.Tensor], cfg: LossConfig,
                   matching: Optional[torch.Tensor] = None,

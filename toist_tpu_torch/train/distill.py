@@ -29,6 +29,7 @@ from toist_tpu_torch.train.step import (EVAL_KEYS, INPUT_KEYS, TARGET_KEYS,
                                         apply_gradients, batch_to_device,
                                         dropout_generator,
                                         train_batch_to_device)
+from toist_tpu_torch.utils.tracing import spanned
 
 
 def distillation_losses(state: TrainState,
@@ -121,6 +122,7 @@ def make_distillation_train_step(cfg: Config,
     teacher and the bank in ``state``. The scalars add the bank's per-task
     ``bank_update_count`` and ``bank_full`` ([T] int32)."""
 
+    @spanned("toist.train_step")
     def train_step(state: TrainState, batches) -> Tuple[TrainState, Dict]:
         batches = train_batch_to_device(batches, state.masters[0][1].device)
         scalars = accumulate_gradients(state, batches, cfg, weight_dict,
@@ -145,6 +147,7 @@ def make_cluster_eval_step(model: torch.nn.Module, cfg: Config,
     ``run.compute_eval_losses`` False skips the criterion."""
     lcfg = cfg.loss
 
+    @spanned("toist.eval_step")
     @torch.inference_mode()
     def eval_step(bank: cl.ClusterBank, batch):
         model.eval()

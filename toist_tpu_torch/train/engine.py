@@ -37,6 +37,7 @@ from toist_tpu_torch.models.postprocess import (finish_masks_device,
                                                 start_masks_device)
 from toist_tpu_torch.utils import dist
 from toist_tpu_torch.utils.logging import JsonlLogger, MetricLogger
+from toist_tpu_torch.utils.tracing import span
 from toist_tpu_torch.utils.transfer import finish_to_host, start_to_host
 from toist_tpu_torch.train.state import TrainState
 from toist_tpu_torch.train.step import train_batch_to_device
@@ -96,14 +97,16 @@ def train_one_epoch(train_step: Callable, state: TrainState,
         state, scalars = train_step(state,
                                     train_batch_to_device(batch, device))
         if i % print_freq == 0 or i == n_batches - 1:
-            host = {k: float(v) for k, v in scalars.items() if v.dim() == 0}
+            with span("toist.host_read"):
+                host = {k: float(v) for k, v in scalars.items()
+                        if v.dim() == 0}
+                # Per-task bank counts ([T] vectors) are logged as lists.
+                vecs = {k: v.tolist() for k, v in scalars.items()
+                        if v.dim() == 1}
             if not host["loss_is_finite"]:
                 print(f"Loss is not finite: {host}", flush=True)
                 sys.exit(1)
             logger.update(**{k: host[k] for k in LOGGED if k in host})
-            # Per-task bank counts ([T] vectors) are logged as lists.
-            vecs = {k: v.tolist() for k, v in scalars.items()
-                    if v.dim() == 1}
             if jsonl is not None:
                 jsonl.write({"kind": "train_step", "epoch": epoch,
                              "step": int(state.step), **host, **vecs})

@@ -42,6 +42,7 @@ from toist_tpu_torch.train import criterion as crit
 from toist_tpu_torch.train.optim import ema_update
 from toist_tpu_torch.train.state import TrainState, model_masters
 from toist_tpu_torch.utils import dist
+from toist_tpu_torch.utils.tracing import span, spanned
 
 INPUT_KEYS = ("images", "image_mask", "text_ids", "text_mask")
 TARGET_KEYS = ("boxes", "positive_map", "box_valid", "sample_valid")
@@ -52,6 +53,7 @@ EVAL_KEYS = INPUT_KEYS + ("orig_size",)
 TRAIN_KEYS = INPUT_KEYS + TARGET_KEYS
 
 
+@spanned("toist.h2d")
 def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device,
                     keys: Sequence[str] = EVAL_KEYS
                     ) -> Dict[str, torch.Tensor]:
@@ -202,12 +204,13 @@ def accumulate_gradients(state: TrainState, batch: Mapping[str, torch.Tensor],
     for i, mb in enumerate(micro):
         total, losses = losses_fn(state, mb[None] if None in mb else mb, cfg,
                                   weight_dict, i)
-        total.backward()
-        for p, m in state.masters:               # bf16 grads -> f32 masters
-            if m is not p and p.grad is not None:
-                m.grad = (p.grad.float() if m.grad is None
-                          else m.grad.add_(p.grad))
-                p.grad = None
+        with span("toist.backward"):
+            total.backward()
+            for p, m in state.masters:           # bf16 grads -> f32 masters
+                if m is not p and p.grad is not None:
+                    m.grad = (p.grad.float() if m.grad is None
+                              else m.grad.add_(p.grad))
+                    p.grad = None
         for k, v in _scalars(losses).items():
             sums[k] = sums[k] + v if k in sums else v
     grads = []
@@ -220,6 +223,7 @@ def accumulate_gradients(state: TrainState, batch: Mapping[str, torch.Tensor],
     return {k: v / accum for k, v in sums.items()}
 
 
+@spanned("toist.optimizer")
 def apply_gradients(state: TrainState, cfg: Config,
                     scalars: Dict[str, torch.Tensor]) -> TrainState:
     """The gradients and ``scalars`` summed over the ranks
@@ -259,6 +263,7 @@ def make_train_step(cfg: Config, weight_dict: Mapping[str, float]
     here) or its tensors already on the model's device (with
     ``model.masks`` it carries "gt_masks")."""
 
+    @spanned("toist.train_step")
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         batch = train_batch_to_device(batch, state.masters[0][1].device)
         scalars = accumulate_gradients(state, batch, cfg, weight_dict)
@@ -291,6 +296,7 @@ def make_eval_step(model: torch.nn.Module, cfg: Config,
     ``run.compute_eval_losses`` False skips the criterion and its matching
     (scalars {}); predictions are the same either way."""
 
+    @spanned("toist.eval_step")
     @torch.inference_mode()
     def eval_step(batch):
         model.eval()

@@ -7,8 +7,12 @@ card, CUDA activity), writes the trace into ``logdir`` as Chrome trace JSON
 and prints one ``[profile]`` line: the device ms over the span and the top
 kernel categories, taken from the profiler's own events (the JAX package
 reads them from the XPlane file with ``utils/xprof.py``, which is not
-ported). ``main`` traces the first epoch when ``run.profile_dir`` is set
-(``toist_tpu/main.py:351-352``).
+ported), and the host ms inside each of the program's spans. The spans
+(``utils/tracing.span``: ``toist.train_step``, ``toist.eval_step``,
+``toist.encode``, ...) are the profiler's own ranges, so the trace holds
+them beside the kernels. ``main`` traces the first epoch when
+``run.profile_dir`` is set (``toist_tpu/main.py:351-352``), and with it
+the epoch's eval, or the eval of an ``eval_only`` run.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from toist_tpu_torch.utils.tracing import PREFIX
 
 # Kernel categories by name fragment, first match wins.
 _KINDS = (
@@ -43,13 +49,19 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def summarize(prof) -> Tuple[float, List[Tuple[str, float, int]]]:
-    """(device ms over the span, [(category, ms, percent)] by ms) from a
-    finished ``torch.profiler.profile``'s device events."""
+def summarize(prof) -> Tuple[float, List[Tuple[str, float, int]],
+                             List[Tuple[str, float]]]:
+    """(device ms over the span, [(category, ms, percent)] by ms,
+    [(span, host ms)] by ms) from a finished ``torch.profiler.profile``'s
+    device events and the program's spans (``toist.*`` ranges; a nested
+    span's ms are also its parent's)."""
     from torch.autograd import DeviceType
 
     kinds: Dict[str, float] = {}
+    spans: Dict[str, float] = {}
     for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith(PREFIX):
+            spans[e.key] = spans.get(e.key, 0.0) + e.cpu_time_total / 1e3
         if (e.device_type != DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
             continue
@@ -61,7 +73,7 @@ def summarize(prof) -> Tuple[float, List[Tuple[str, float, int]]]:
     total = sum(kinds.values())
     cats = sorted(((k, ms, round(100 * ms / total) if total else 0)
                    for k, ms in kinds.items()), key=lambda c: -c[1])
-    return total, cats
+    return total, cats, sorted(spans.items(), key=lambda s: -s[1])
 
 
 @contextlib.contextmanager
@@ -87,15 +99,17 @@ def trace(logdir: Optional[str]):
         prof.stop()
         path = os.path.join(logdir, f"trace_{os.getpid()}.json.gz")
         prof.export_chrome_trace(path)
-        total, cats = summarize(prof)
+        total, cats, spans = summarize(prof)
         if total > 0:
-            print(f"[profile] device total {total:.0f}ms; top op "
-                  "categories: " + ", ".join(
-                      f"{n} {ms:.0f}ms ({p}%)" for n, ms, p in cats[:6])
-                  + f"; trace {path}", flush=True)
+            head = (f"device total {total:.0f}ms; top op categories: "
+                    + ", ".join(f"{n} {ms:.0f}ms ({p}%)"
+                                for n, ms, p in cats[:6]))
         else:
-            print(f"[profile] device total not measured (no device events "
-                  f"in the span); trace {path}", flush=True)
+            head = "device total not measured (no device events in the span)"
+        if spans:
+            head += "; host in spans: " + ", ".join(
+                f"{n} {ms:.0f}ms" for n, ms in spans)
+        print(f"[profile] {head}; trace {path}", flush=True)
 
 
 def device_memory_stats() -> dict:
