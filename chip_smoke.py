@@ -27,7 +27,8 @@ Phases, each of which raises on failure (non-zero exit):
      d256 transformer in bf16, weights random from a seed in the reference
      checkpoint's layout, answering batches of 8 on the 800x1344 and
      1344x800 canvases; every forward must launch the tensor-core forward
-     12 times;
+     12 times, and every call after the warm-up must replay the image and
+     text encoders' CUDA graph (``Predictor.graphs``' counters);
   5. slice kernel vs plain: the same weights in f32 (TF32 off) on one batch,
      once through the kernel and once through the plain attention;
      pred_logits and pred_boxes must agree within 2e-3;
@@ -632,6 +633,8 @@ def phase_slice(smi, has_pil):
     for b in batches:                       # warm-up: one pass per canvas
         predictor.predict_batch(b)
     torch.cuda.synchronize()
+    graphs = predictor.graphs
+    warm = (graphs.captures, graphs.replays, graphs.eager)
 
     # The counted run: every request below goes through the main path.
     reset_counts()
@@ -651,6 +654,15 @@ def phase_slice(smi, has_pil):
                 raise AssertionError(f"kernel launches in one bf16 forward: "
                                      f"{got}")
             lat.append((b["images"].shape[1:3], n_valid, dt))
+    # The image and text encoders: one CUDA graph per canvas, captured in
+    # the warm-up; every counted call replays.
+    got = (graphs.captures, graphs.replays, graphs.eager)
+    log(f"[slice] encoder graphs: {got[0]} captures, {got[1]} replays, "
+        f"{got[2]} eager calls (after the warm-up: {warm}); hit share "
+        f"{got[1] / max(sum(got), 1):.3f}")
+    if got != (warm[0], warm[1] + len(lat), warm[2]):
+        raise AssertionError(f"encoder graphs: not every call after the "
+                             f"warm-up replayed: {warm} -> {got}")
     if has_pil:
         from PIL import Image
 

@@ -555,3 +555,164 @@ def test_fused_attention_off_routes_around_the_kernels(cuda, tmp_path,
     torch.cuda.synchronize()
     assert torch.isfinite(out["pred_logits"]).all()
     assert flash_attention.launches - before == (0 if fused == "off" else 4)
+
+
+# The Predictor's CUDA graphs of the image and text encoders
+# (predict.UnimodalGraphs): every replay bit for bit equal to the eager
+# forward of the same model, on the serving canvases, one capture per key.
+
+def _flagship_state(seed):
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.utils.convert import synth_reference_state_dict
+
+    m = Config.from_sources(None, {}).model
+    sd = synth_reference_state_dict(
+        stage_sizes=(3, 4, 23, 3), enc=m.enc_layers, dec=m.dec_layers,
+        d=m.hidden_dim, dim_feedforward=m.dim_feedforward,
+        text_layers=m.text_layers, text_hidden=m.text_hidden,
+        text_intermediate=m.text_intermediate, num_queries=m.num_queries,
+        contrastive_hdim=m.contrastive_hdim, with_masks=False, seed=seed)
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship (ResNet-101, RoBERTa-base, bf16) as a Predictor on the
+    card, from seeded weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.predict import Predictor
+
+    cfg = Config.from_sources(None, {"run": {"compute_eval_losses": False}})
+    return Predictor.from_state_dict(_flagship_state(0), cfg)
+
+
+def _serving_batch(predictor, rng, n, orient="landscape", rows=None,
+                   size=None):
+    """``n`` images of ``size``, or resized to a short side of 800 (long
+    side 900-1333, landscape or portrait), collated on their canvas in a
+    batch of ``rows`` (default ``n``)."""
+    from toist_tpu_torch.data.batcher import collate
+
+    samples = []
+    for i in range(n):
+        long_ = int(rng.integers(900, 1334))
+        hw = size or ((800, long_) if orient == "landscape" else (long_, 800))
+        img = rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+        samples.append(predictor.prepare(img, int(1 + (i * 5) % 14)))
+    return collate(samples, predictor.spec, predictor.bucket(samples[0]),
+                   batch_size=rows or n)
+
+
+def _assert_replay_is_eager(model, graphs, batch):
+    """The forward with the encoders replayed equals the eager one bit for
+    bit: every output and the postprocessed detections. Returns them."""
+    from toist_tpu_torch.train.step import eval_forward
+
+    want, want_post = eval_forward(model, batch)
+    got, got_post = eval_forward(model, batch, unimodal=graphs)
+    for k, w in want.items():
+        assert torch.equal(got[k], w), k
+    for k, w in want_post.items():
+        assert torch.equal(got_post[k], w), k
+    return got, got_post
+
+
+def test_replay_matches_eager_with_canvases_alternating(cuda, flagship):
+    from toist_tpu_torch.predict import UnimodalGraphs
+
+    graphs = UnimodalGraphs(flagship.model)
+    rng = np.random.default_rng(0)
+    batches = {(n, o): _serving_batch(flagship, rng, n, o)
+               for n in (1, 8) for o in ("landscape", "portrait")}
+    assert {tuple(b["images"].shape[1:3]) for b in batches.values()} == {
+        (800, 1344), (1344, 800)}
+    order = [(1, "landscape"), (1, "portrait"), (8, "landscape"),
+             (8, "portrait"), (1, "landscape"), (8, "portrait"),
+             (1, "portrait"), (8, "landscape"), (1, "landscape"),
+             (1, "portrait"), (8, "landscape"), (8, "portrait")]
+    seen = set()
+    for key in order:
+        before = (graphs.captures, graphs.replays)
+        _assert_replay_is_eager(flagship.model, graphs, batches[key])
+        new = key not in seen
+        seen.add(key)
+        assert (graphs.captures, graphs.replays) == (
+            before[0] + new, before[1] + (not new)), key
+    assert (graphs.captures, graphs.replays, graphs.eager) == (
+        4, len(order) - 4, 0)
+    assert len(graphs.by_key) == 4
+
+
+def test_replay_matches_eager_half_empty_and_after_new_weights(cuda,
+                                                               flagship):
+    from toist_tpu_torch.predict import UnimodalGraphs
+
+    model = flagship.model
+    graphs = UnimodalGraphs(model)
+    rng = np.random.default_rng(1)
+    full = _serving_batch(flagship, rng, 8, "landscape")
+    half = _serving_batch(flagship, rng, 3, "landscape", rows=8)
+    assert full["images"].shape == half["images"].shape
+    assert int(half["sample_valid"].sum()) == 3
+    _, before = _assert_replay_is_eager(model, graphs, full)
+    _assert_replay_is_eager(model, graphs, half)
+    assert (graphs.captures, graphs.replays) == (1, 1)
+
+    old = {k: v.clone() for k, v in model.state_dict().items()}
+    new = {k: v * 0.9 if v.is_floating_point() else v
+           for k, v in old.items()}
+    try:
+        model.load_state_dict(new)       # in place: the graphs see it
+        _, after = _assert_replay_is_eager(model, graphs, full)
+        assert not torch.equal(after["scores"], before["scores"])
+        assert (graphs.captures, graphs.replays) == (1, 2)
+    finally:
+        model.load_state_dict(old)
+    _, again = _assert_replay_is_eager(model, graphs, full)
+    assert torch.equal(again["scores"], before["scores"])
+
+    # The Predictor's own calls replay its graphs after the first.
+    flagship.predict_batch(full)
+    n = flagship.graphs.captures
+    for _ in range(2):
+        flagship.predict_batch(full)
+    assert flagship.graphs.captures == n and flagship.graphs.eager == 0
+
+
+def test_replay_matches_eager_with_a_mask_head(cuda):
+    """The mask head reads the backbone's features from the graph's
+    outputs (``features_c2..c4``, ``src_proj``, ``feature_mask``)."""
+    from toist_tpu_torch.config import Config
+    from toist_tpu_torch.data.captions import build_tokenizer
+    from toist_tpu_torch.predict import Predictor, UnimodalGraphs
+    from toist_tpu_torch.utils.convert import synth_reference_state_dict
+
+    cfg = Config.from_sources(None, {
+        "model": {"backbone": "resnet18-test", "hidden_dim": 128,
+                  "nheads": 8, "dim_feedforward": 256, "enc_layers": 2,
+                  "dec_layers": 2, "num_queries": 10, "text_hidden": 64,
+                  "text_layers": 2, "text_heads": 4, "text_intermediate": 128,
+                  "contrastive_hdim": 16, "mask_model": "smallconv"},
+        "data": {"image_buckets": [[320, 448], [448, 320]],
+                 "max_text_len": 64, "max_size": 448, "val_size": 320}})
+    assert cfg.model.masks
+    tok = build_tokenizer(cfg)
+    sd = synth_reference_state_dict(
+        stage_sizes=(1, 1, 1, 1), enc=2, dec=2, d=128, dim_feedforward=256,
+        text_layers=2, text_hidden=64, text_intermediate=128, num_queries=10,
+        vocab_size=tok.vocab_size, contrastive_hdim=16, with_masks=True,
+        seed=7)
+    predictor = Predictor.from_state_dict(
+        {k: torch.from_numpy(v) for k, v in sd.items()}, cfg, tokenizer=tok)
+    graphs = UnimodalGraphs(predictor.model)
+    rng = np.random.default_rng(2)
+    batches = [_serving_batch(predictor, rng, 2, size=size)
+               for size in ((320, 440), (440, 320))]
+    for b in batches + batches + batches:
+        got, _ = _assert_replay_is_eager(predictor.model, graphs, b)
+        assert got["pred_masks"].shape[:2] == (2, 10)
+    assert (graphs.captures, graphs.replays) == (2, 4)
+    res = predictor.predict_batch(batches[0])
+    assert len(res) == 2 and all("masks" in r for r in res)

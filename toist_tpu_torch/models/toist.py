@@ -26,7 +26,8 @@ backbone's channels (ResNet's 2048 / 1024, 512, 256, or EfficientNet's).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import functools
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -46,15 +47,26 @@ from toist_tpu_torch.utils.tracing import spanned
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_constants(device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 (scale, shift) of ImageNet normalization on ``device``, made
+    once: a copy from the host on every call would be a pageable upload,
+    which CUDA graph capture refuses. Made outside inference mode, so that
+    training may use them too."""
+    from toist_tpu_torch.data.transforms import _NORM_SCALE, _NORM_SHIFT
+
+    with torch.inference_mode(False):
+        return (torch.as_tensor(_NORM_SCALE, device=device),
+                torch.as_tensor(_NORM_SHIFT, device=device))
+
+
 def normalize_uint8_images(images: torch.Tensor,
                            image_mask: torch.Tensor) -> torch.Tensor:
     """ImageNet normalization of raw u8 canvases [B, H, W, 3] on the device:
     the same f32 ``x * scale - shift`` affine as the host path, padded pixels
     forced to 0."""
-    from toist_tpu_torch.data.transforms import _NORM_SCALE, _NORM_SHIFT
-
-    scale = torch.as_tensor(_NORM_SCALE, device=images.device)
-    shift = torch.as_tensor(_NORM_SHIFT, device=images.device)
+    scale, shift = _norm_constants(images.device)
     keep = (~image_mask)[..., None].float()
     return (images.float() * scale - shift) * keep
 
@@ -141,14 +153,19 @@ class TOIST(nn.Module):
             self.mask_head.out_lay.float()
         return self
 
-    @spanned("toist.encode")
-    def encode(self, images: torch.Tensor, image_mask: torch.Tensor,
-               text_ids: torch.Tensor, text_mask: torch.Tensor,
-               generator: Optional[torch.Generator] = None
-               ) -> Dict[str, torch.Tensor]:
-        """images [B,H,W,3] u8 (normalized here) or f32 normalized;
-        image_mask [B,H,W] True = pad; text_ids [B,T] int; text_mask [B,T]
-        True = pad. Returns the memory cache."""
+    def encode_unimodal(self, images: torch.Tensor,
+                        image_mask: torch.Tensor, text_ids: torch.Tensor,
+                        text_mask: torch.Tensor,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """The image and the text encoders, each on its own input: all of
+        ``encode`` before the joint encoder, whose shapes are fixed by the
+        inputs' (the Predictor replays it as a CUDA graph per canvas).
+        Returns the image tokens, their position embeddings and pad mask
+        (with the CLS slot under ``contrastive_loss``), the resized text
+        (and RoBERTa's pooled output under ``contrastive_loss``), and the
+        backbone's features, ``input_proj``'s map and the feature mask for
+        the cache."""
         cfg, dt = self.cfg, self.compute_dtype
         d = cfg.hidden_dim
         if images.dtype == torch.uint8:
@@ -167,7 +184,7 @@ class TOIST(nn.Module):
         img_token_mask = fmask.reshape(B, fh * fw)
 
         tr = self.transformer
-        text_pooled = None
+        out = {}
         if cfg.contrastive_loss:
             cls_tok = tr.CLS.weight.to(dt)[None].expand(B, 1, d)
             img_tokens = torch.cat([cls_tok, img_tokens], dim=1)
@@ -175,18 +192,41 @@ class TOIST(nn.Module):
                                     pos_tokens], dim=1)
             img_token_mask = torch.cat(
                 [img_token_mask.new_zeros(B, 1), img_token_mask], dim=1)
-            text_last, text_pooled = tr.text_encoder(text_ids, text_mask,
-                                                     generator)
+            text_last, out["text_pooled"] = tr.text_encoder(
+                text_ids, text_mask, generator)
         else:
             text_last = tr.text_encoder(text_ids, text_mask, generator)
-        text_resized = tr.resizer(text_last, generator)
+        out.update(
+            img_tokens=img_tokens, pos_tokens=pos_tokens,
+            img_token_mask=img_token_mask,
+            text_resized=tr.resizer(text_last, generator),
+            features_c2=feats["layer1"], features_c3=feats["layer2"],
+            features_c4=feats["layer3"], src_proj=src, feature_mask=fmask)
+        return out
 
-        joint = torch.cat([img_tokens, text_resized.to(dt)], dim=1)
-        joint_mask = torch.cat([img_token_mask, text_mask], dim=1)
-        joint_pos = torch.cat([pos_tokens, torch.zeros_like(text_resized,
-                                                            dtype=dt)], dim=1)
-        img_memory = tr.encoder(joint, joint_pos, joint_mask, generator)
+    @spanned("toist.encode")
+    def encode(self, images: torch.Tensor, image_mask: torch.Tensor,
+               text_ids: torch.Tensor, text_mask: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               unimodal: Optional[Callable[..., Dict[str, torch.Tensor]]]
+               = None) -> Dict[str, torch.Tensor]:
+        """images [B,H,W,3] u8 (normalized here) or f32 normalized;
+        image_mask [B,H,W] True = pad; text_ids [B,T] int; text_mask [B,T]
+        True = pad. ``unimodal`` stands in for ``self.encode_unimodal``
+        (the Predictor's graph replay of it). Returns the memory cache."""
+        dt = self.compute_dtype
+        u = (unimodal or self.encode_unimodal)(images, image_mask, text_ids,
+                                                text_mask, generator)
+        text_resized = u["text_resized"]
+        joint = torch.cat([u["img_tokens"], text_resized.to(dt)], dim=1)
+        joint_mask = torch.cat([u["img_token_mask"], text_mask], dim=1)
+        joint_pos = torch.cat([u["pos_tokens"],
+                               torch.zeros_like(text_resized, dtype=dt)],
+                              dim=1)
+        img_memory = self.transformer.encoder(joint, joint_pos, joint_mask,
+                                              generator)
         T = text_ids.shape[1]
+        src = u["src_proj"]
         cache = {
             "text_memory_resized": text_resized,
             "text_memory": img_memory[:, -T:],
@@ -194,15 +234,15 @@ class TOIST(nn.Module):
             "mask": joint_mask,
             "text_attention_mask": text_mask,
             "pos_embed": joint_pos,
-            "feature_hw": (fh, fw),
-            "features_c2": feats["layer1"],
-            "features_c3": feats["layer2"],
-            "features_c4": feats["layer3"],
+            "feature_hw": tuple(src.shape[2:]),
+            "features_c2": u["features_c2"],
+            "features_c3": u["features_c3"],
+            "features_c4": u["features_c4"],
             "src_proj": src,
-            "feature_mask": fmask,
+            "feature_mask": u["feature_mask"],
         }
-        if cfg.contrastive_loss:
-            cache["text_pooled_op"] = text_pooled
+        if self.cfg.contrastive_loss:
+            cache["text_pooled_op"] = u["text_pooled"]
             cache["img_pooled_op"] = img_memory[:, 0]
         return cache
 
@@ -274,7 +314,7 @@ class TOIST(nn.Module):
         return logits.reshape(B, N, logits.shape[2], logits.shape[3]).float()
 
     def forward(self, images, image_mask, text_ids, text_mask,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, unimodal=None):
         cache = self.encode(images, image_mask, text_ids, text_mask,
-                            generator)
+                            generator, unimodal)
         return self.decode(cache, generator=generator), cache

@@ -16,6 +16,12 @@ Example:
 
 Canvases are shipped as u8 and normalized on the device, which the JAX
 package shows bit-equal to host normalization (``device_normalize``).
+
+On the card, the image and text encoders (``TOIST.encode_unimodal``, the
+forward before the joint encoder: about four fifths of its kernel launches)
+run as one CUDA graph per input shape (``UnimodalGraphs``), captured at a
+shape's first call and replayed inside ``toist.encode`` after it. The joint
+encoder, the decoder and the postprocess stay eager.
 """
 from __future__ import annotations
 
@@ -34,12 +40,78 @@ from toist_tpu_torch.train.step import eval_forward
 from toist_tpu_torch.utils.tracing import span, spanned
 
 
+class UnimodalGraphs:
+    """``model.encode_unimodal`` as one CUDA graph per input key (the four
+    inputs' shapes and dtypes: batch, canvas, text length), all in one
+    memory pool, as replays never overlap.
+
+    A call engages the graphs when what it can observe allows: CUDA
+    inputs, the model in eval mode, gradients off. Then an unseen key
+    warms the method up on a side stream, captures it (a capture that
+    fails raises) and replays it; a known key copies the inputs into the
+    graph's static inputs and replays. Any other call runs the method
+    eagerly. The returned tensors are the graph's static outputs, which
+    the next replay overwrites: the caller reads them in stream order
+    before its next call. The graphs read the model's weights where they
+    lie, so only an in-place update of them (``load_state_dict``) reaches
+    a replay. A graph lives as long as this object: ``Predictor.__call__``,
+    which batches the images that share a canvas, adds one per batch
+    size.
+
+    Counters, as ``flash_attention.launches``: ``captures``, ``replays``
+    and ``eager`` calls; the hit share is replays over all three."""
+
+    def __init__(self, model: TOIST):
+        self.model = model
+        self.by_key: Dict[tuple, tuple] = {}  # (graph, inputs, outputs)
+        self.pool = None
+        self.captures = self.replays = self.eager = 0
+
+    def __call__(self, images: torch.Tensor, image_mask: torch.Tensor,
+                 text_ids: torch.Tensor, text_mask: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Dict[str, torch.Tensor]:
+        args = (images, image_mask, text_ids, text_mask)
+        if not (images.is_cuda and not self.model.training
+                and not torch.is_grad_enabled()):
+            self.eager += 1
+            return self.model.encode_unimodal(*args, generator)
+        key = tuple((tuple(t.shape), t.dtype) for t in args)
+        entry = self.by_key.get(key)
+        if entry is None:
+            entry = self.by_key[key] = self._capture(args)
+            self.captures += 1
+        else:
+            self.replays += 1
+        graph, static_in, static_out = entry
+        for s, x in zip(static_in, args):
+            s.copy_(x)
+        graph.replay()
+        return static_out
+
+    def _capture(self, args: Tuple[torch.Tensor, ...]) -> tuple:
+        static_in = [x.clone() for x in args]
+        with torch.cuda.device(args[0].device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):     # cuDNN and cuBLAS choose here
+                self.model.encode_unimodal(*static_in)
+            torch.cuda.current_stream().wait_stream(side)
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool):
+                static_out = self.model.encode_unimodal(*static_in)
+        return graph, static_in, static_out
+
+
 class Predictor:
     """A TOIST model as a batched task-driven detector."""
 
     def __init__(self, model: TOIST, tokenizer: RobertaBPE, cfg: Config,
                  score_threshold: float = 0.0):
         self.model = model
+        self.graphs = UnimodalGraphs(model)
         self.tokenizer = tokenizer
         self.cfg = cfg
         self.score_threshold = score_threshold
@@ -119,7 +191,7 @@ class Predictor:
         """Run one collated batch; one result per valid row, boxes sorted by
         score (descending) and filtered by ``score_threshold``; with a
         mask head each also holds "masks", the kept boxes' RLEs."""
-        out, post = eval_forward(self.model, batch)
+        out, post = eval_forward(self.model, batch, unimodal=self.graphs)
         masks = None
         if "pred_masks" in out:
             masks = postprocess_masks_device(

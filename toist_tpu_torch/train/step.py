@@ -273,15 +273,17 @@ def make_train_step(cfg: Config, weight_dict: Mapping[str, float]
 
 
 @torch.inference_mode()
-def eval_forward(model: torch.nn.Module, batch: Mapping[str, np.ndarray]
+def eval_forward(model: torch.nn.Module, batch: Mapping[str, np.ndarray],
+                 unimodal: Optional[Callable] = None
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Forward + postprocess of one batch -> (model outputs, postprocessed
     scores/labels/boxes). A model with a mask head adds "pred_masks"
-    [B, Q, H/4, W/4] to the outputs."""
+    [B, Q, H/4, W/4] to the outputs. ``unimodal`` goes to
+    ``TOIST.encode``."""
     device = next(model.parameters()).device
     x = batch_to_device(batch, device)
     out, cache = model(x["images"], x["image_mask"], x["text_ids"],
-                       x["text_mask"])
+                       x["text_mask"], unimodal=unimodal)
     if model.cfg.masks:
         out["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
     post = postprocess_boxes(out["pred_logits"], out["pred_boxes"],
