@@ -7,12 +7,21 @@ them sits in a file of its own, found by its name:
 - a configuration: ``configs/<config>.json`` (its "file" entry);
 - a traffic mix: ``workloads/<traffic>.json``, the parameters the general
   generators of ``traffic.py`` read, its "mode" naming its runner;
+- a traffic mode: ``<mode>.py`` beside this file, which defines
+  ``run(cell, seed, seconds, trace, t_start)`` returning the run's record
+  (``run.runner_of``; the record's keys are listed in ``run.py``). A
+  training mode's ``run`` calls ``training.drive`` with a
+  ``training.Program`` of its own: its set-up, a pool entry's model FLOP
+  and canvas key, and the check's numbers from its reference (under
+  ``reference/``); ``train.py`` is the plain step's;
 - a cell's limits for the output check: ``limits/<cell>.json``;
 - a per-layer metric: ``metrics/<metric>.py``, a reader with
-  ``read(run) -> float | None``.
+  ``read(run) -> float | None``. A training mode's records carry "mode"
+  "train", so a ``*.train`` metric reads a new training cell once its
+  "workloads" list names it.
 
-Adding a configuration, a cell or a metric adds files and entries; no file
-here changes.
+Adding a configuration, a traffic mode, a cell or a metric adds files and
+entries; no file here changes.
 """
 from __future__ import annotations
 

@@ -53,10 +53,7 @@ def train_readings(cell, seed: int, program: bool, control: bool,
     if program:
         s = train.checked_setup(cell, seed, device, step_hook)
         train.free(s, device)
-        ref32 = train.reference_steps(s["W"], s["m"], cell.config, t,
-                                      s["pool"][:t["check_steps"]], seed,
-                                      device)
-        out["program"] = train.gaps(s["program"], ref32)
+        out["program"] = train.numbers(cell, s, seed, device)
     if control:
         m = serve.model_sizes(cell.config)
         W = weights.make_weights(ref.param_spec(m), seed, device)

@@ -14,8 +14,21 @@ run each profiled stretch's time per call or step beside the window's),
 and last ``check``, the numbers compared beside their limits (also the
 last lines of standard error, after every number the check computed). It
 exits non-zero and prints no result without as many CUDA devices as the
-cell asks for, or when a module of JAX or of the JAX package is loaded
-once the window has closed.
+cell asks for, when the cell's traffic mode has no runner, or when a
+module of JAX or of the JAX package is loaded once the window has closed.
+
+A traffic mix's "mode" names its runner: mode ``X`` runs
+``benchmark/X.py`` (``runner_of``), which defines
+``run(cell, seed, seconds, trace, t_start) -> record``. So a mode is added
+by a new file, and no file here changes. The record holds "mode" (the
+runner's family, which the per-layer readers match: "serve" or "train"),
+"attempted", "failed", each of its cells' end-to-end metrics by name
+("setup_s" among them), "window_s", "model_flops", "memory_peak_bytes",
+"numbers" (the check's numbers, named as in ``limits/<cell>.json``) and
+"pace"; with ``--trace 1`` also what ``probes.traced`` returns and
+"trace_units", the calls or steps it traced. A training mode's ``run``
+calls ``training.drive`` with a ``training.Program`` of its own, and the
+skeleton writes all of these with "mode" "train".
 """
 from __future__ import annotations
 
@@ -24,6 +37,8 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import ast  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -42,6 +57,21 @@ def forbidden_modules(modules=None) -> list:
     ones), compared whole: ``toist_tpu_torch`` is not ``toist_tpu``."""
     names = {m.split(".", 1)[0] for m in (modules or list(sys.modules))}
     return sorted(names & set(FORBIDDEN))
+
+
+def runner_of(mode: str, root: str = ROOT):
+    """The module that runs traffic mode ``mode``: ``benchmark.<mode>``
+    when ``benchmark/<mode>.py`` under ``root`` has a top-level
+    ``def run``, else None. The file is read, not imported."""
+    path = os.path.join(root, "benchmark", f"{mode}.py")
+    if not mode.isidentifier() or not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    if any(isinstance(n, ast.FunctionDef) and n.name == "run"
+           for n in tree.body):
+        return f"benchmark.{mode}"
+    return None
 
 
 def cache_dirs(root: str) -> dict:
@@ -114,6 +144,12 @@ def main(argv=None) -> int:
     from benchmark import cells, check
 
     cell = cells.load_cell(args.workload, ROOT)
+    mode = cell.traffic["mode"]
+    name = runner_of(mode, ROOT)
+    if name is None:
+        print(f"benchmark: traffic mode {mode!r} has no runner: no "
+              f"benchmark/{mode}.py that defines run()", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < cell.chips:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -124,15 +160,7 @@ def main(argv=None) -> int:
         # The host's intra-op threads: a parallel region waits on its
         # slowest thread, which a shared host may leave unscheduled.
         torch.set_num_threads(int(cell.traffic["host_threads"]))
-    runners = {"serve": "benchmark.serve", "train": "benchmark.train"}
-    mode = cell.traffic["mode"]
-    if mode not in runners:
-        print(f"benchmark: traffic mode {mode!r} has no runner",
-              file=sys.stderr)
-        return 2
-    import importlib
-
-    runner = importlib.import_module(runners[mode])
+    runner = importlib.import_module(name)
     record = runner.run(cell, args.seed, args.seconds, bool(args.trace),
                         T_START)
     bad = forbidden_modules()

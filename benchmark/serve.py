@@ -24,6 +24,10 @@ import torch
 from benchmark import check, counters, pace, probes, traffic, weights
 from benchmark.reference import toist as ref
 
+# The record's "mode": the family of runners whose records the ``*.serve``
+# readers read.
+FAMILY = "serve"
+
 
 def model_sizes(config: dict) -> dict:
     m = dict(config["model"])
@@ -140,7 +144,7 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float,
     answers = {j: answers[j]
                for j in check_sample(t, min(calls, len(pool)), seed)}
 
-    record = {"mode": "serve", "attempted": calls, "failed": 0,
+    record = {"mode": FAMILY, "attempted": calls, "failed": 0,
               "setup_s": setup_s, "window_s": window_s, "calls": calls,
               "images": images,
               "serve_img_s": images / window_s,

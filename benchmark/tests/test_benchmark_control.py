@@ -27,7 +27,7 @@ def _fails(cell, gaps) -> bool:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["r101-serve-b8", "r101-serve-b1"])
+@pytest.mark.parametrize("name", ["r101-serve-b8"])
 def test_serving_control_fails_and_program_passes(card, name):
     """The program's side is a short run of the cell's own timed path."""
     cell = cells.load_cell(name)

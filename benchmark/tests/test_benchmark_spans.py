@@ -169,10 +169,9 @@ def test_cells_report_the_span_metrics(train_run, serve_run):
     assert set(TRAIN) <= set(got)
     assert got["criterion_ms.train"] == {"value": pytest.approx(0.1),
                                          "unit": "ms"}
-    for cell in ("r101-serve-b8", "r101-serve-b1"):
-        got = cells.read_per_layer(cells.load_cell(cell), serve_run)
-        assert set(SERVE) <= set(got)
-        assert got["answer_wait_ms.serve"]["value"] == pytest.approx(0.16)
+    got = cells.read_per_layer(cells.load_cell("r101-serve-b8"), serve_run)
+    assert set(SERVE) <= set(got)
+    assert got["answer_wait_ms.serve"]["value"] == pytest.approx(0.16)
 
 
 def test_each_entry_has_its_file_and_each_file_its_entry():
@@ -184,7 +183,7 @@ def test_each_entry_has_its_file_and_each_file_its_entry():
     for name in SERVE + TRAIN:
         m = entries[name]
         assert m["source"] == "device_trace" and m["better"] == "lower"
-        assert m["workloads"] == (["r101-serve-b8", "r101-serve-b1"]
+        assert m["workloads"] == (["r101-serve-b8"]
                                   if name.endswith(".serve")
                                   else ["r101-train-b6"])
         assert callable(cells.metric_reader(name))

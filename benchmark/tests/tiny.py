@@ -4,13 +4,29 @@ small canvases, so that the program and the reference run in seconds."""
 from __future__ import annotations
 
 import copy
+import importlib
 
-from benchmark import cells
+from benchmark import cells, run
 
 TINY_MODEL = dict(backbone="resnet18-test", hidden_dim=32, nheads=2,
                   dim_feedforward=64, enc_layers=1, dec_layers=2,
                   num_queries=10, text_hidden=24, text_layers=1,
                   text_heads=2, text_intermediate=48, contrastive_hdim=16)
+
+# The traffic's cut by the family of the mode's runner (its ``FAMILY``).
+TINY_TRAFFIC = {
+    "serve": dict(canvases=[[64, 96], [96, 64]], short_side=64,
+                  long_side=[70, 90], pool=3, check_calls=3),
+    "train": dict(canvases=[[64, 96], [96, 160]], scales=[64, 96],
+                  max_long=150, steps_per_epoch=10, warmup_steps=2)}
+
+
+def family_of(mode: str) -> str:
+    """The family of the runner of traffic mode ``mode``."""
+    name = run.runner_of(mode)
+    if name is None:
+        raise ValueError(f"traffic mode {mode!r} has no runner")
+    return importlib.import_module(name).FAMILY
 
 
 def tiny_cell(name: str, dtype: str = "float32") -> cells.Cell:
@@ -21,11 +37,10 @@ def tiny_cell(name: str, dtype: str = "float32") -> cells.Cell:
     cfg["vocab_size"] = 300
     cell.config = cfg
     t = dict(cell.traffic)
-    if t["mode"] == "serve":
-        t.update(batch=min(t["batch"], 2), canvases=[[64, 96], [96, 64]],
-                 short_side=64, long_side=[70, 90], pool=3, check_calls=3)
-    else:
-        t.update(batch=2, canvases=[[64, 96], [96, 160]], scales=[64, 96],
-                 max_long=150, steps_per_epoch=10, warmup_steps=2)
+    family = family_of(t["mode"])
+    if family not in TINY_TRAFFIC:
+        raise ValueError(f"no tiny cut for mode {t['mode']!r} of runner "
+                         f"family {family!r}")
+    t.update(TINY_TRAFFIC[family], batch=min(t["batch"], 2))
     cell.traffic = t
     return cell

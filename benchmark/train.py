@@ -1,65 +1,33 @@
-"""The training runner: ``train_one_epoch`` over ``make_train_step``, fed
-batches of the mix round and round.
+"""The training mode ``train``: the plain TOIST step (``make_train_step``)
+under the training skeleton of ``training.py``.
 
-Set-up builds one training state from the seed's weights (``init_train_state``
-and ``load_masters``, as ``main`` does) and drives it through its first
-``check_steps`` steps by the window's own call and feed, one
-``train_one_epoch`` per stretch. It keeps what the check compares: each
-step's loss, every trainable tensor's first gradient as AdamW got it (its
-first moment after one step over 1 - beta1), and each tensor's change and
-its EMA's change after the checked steps. It then runs one step on every
-canvas not yet seen, and one stretch of ``warmup_steps``. The window hands
-the same state and step to ``train_one_epoch`` over a feed that stops once
-``--seconds`` have passed; it ends when the device has finished. Once the
-window has closed and the peak memory is read, the program is freed and
-the reference repeats the checked steps from the same weights and batches.
+Its program's set-up builds one training state from the seed's weights
+(``init_train_state`` and ``load_masters``, as ``main`` does) and drives it
+through its first ``check_steps`` steps by the window's own call and feed,
+one ``train_one_epoch`` per stretch. It keeps what the check compares:
+each step's loss, every trainable tensor's first gradient as AdamW got it
+(its first moment after one step over 1 - beta1), and each tensor's
+change and its EMA's change after the checked steps. Once the window has
+closed, the reference repeats the checked steps from the same weights and
+batches.
 """
 from __future__ import annotations
 
-import gc
-import time
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from benchmark import counters, pace, probes, traffic, weights
+from benchmark import counters, traffic, training, weights
 from benchmark.reference import toist as ref
 from benchmark.reference import train as reftrain
-from benchmark.serve import model_sizes, program_config, sync
+from benchmark.serve import model_sizes, program_config
+from benchmark.training import Feed, free  # noqa: F401  (importable here)
+
+FAMILY = training.FAMILY
 
 TRAIN_KEYS = ("images", "image_mask", "text_ids", "text_mask", "boxes",
               "positive_map", "box_valid", "sample_valid")
-
-
-class Feed:
-    """What ``train_one_epoch`` iterates: ``epoch()`` yields pool batches
-    from ``start`` on, ``count`` of them, or, with ``seconds``, until that
-    long has passed since the first."""
-
-    def __init__(self, pool: List[dict], start: int, count: int = 0,
-                 seconds: float = 0.0):
-        self.pool, self.start = pool, start
-        self.count, self.seconds = count, seconds
-        self.served = 0
-        self.t0 = None
-        self.times: List[float] = []     # seconds since t0 of each batch
-
-    def __len__(self) -> int:
-        return self.count or 10 ** 6
-
-    def epoch(self, _epoch: int):
-        self.t0 = time.perf_counter()
-        i = self.start
-        while True:
-            if self.count and self.served >= self.count:
-                return
-            if self.seconds and time.perf_counter() - self.t0 >= self.seconds:
-                return
-            self.times.append(time.perf_counter() - self.t0)
-            yield self.pool[i % len(self.pool)]
-            i += 1
-            self.served += 1
 
 
 def trainable(name: str, kind: str) -> bool:
@@ -244,79 +212,28 @@ def checked_setup(cell, seed: int, device="cuda", step_hook=None) -> dict:
                                             for n, _, _ in named})
     program["losses"] = [float(x) for x in losses]
     return {"state": state, "train_step": train_step, "pool": pool,
-            "program": program, "W": W, "m": m,
-            "train_one_epoch": train_one_epoch}
+            "program": program, "W": W, "m": m}
 
 
-def free(s: dict, device) -> None:
-    """Drop the program's state, so that the reference runs alone."""
-    for k in ("state", "train_step"):
-        s.pop(k, None)
-    gc.collect()
-    if device != "cpu":
-        torch.cuda.empty_cache()
+
+
+def numbers(cell, s: dict, seed: int, device) -> Dict[str, float]:
+    """The check's numbers: the reference's checked steps from the seed's
+    weights over the pool's first entries, against the program's."""
+    reference = reference_steps(s["W"], s["m"], cell.config, cell.traffic,
+                                s["pool"][:cell.traffic["check_steps"]],
+                                seed, device)
+    return gaps(s["program"], reference)
+
+
+PROGRAM = training.Program(setup=checked_setup, flops=batch_flops,
+                           canvas=lambda b: b["images"].shape,
+                           numbers=numbers)
 
 
 def run(cell, seed: int, seconds: float, trace: bool, t_start: float,
         device="cuda", step_hook=None) -> dict:
     """One run of a training cell; returns the harness's record.
     ``step_hook(step) -> step`` lets a test break the timed path."""
-    t = cell.traffic
-    s = checked_setup(cell, seed, device, step_hook)
-    state, train_step, pool = s["state"], s["train_step"], s["pool"]
-    train_one_epoch = s["train_one_epoch"]
-    m, pf, n_check = s["m"], t["print_freq"], t["check_steps"]
-    pool_flops = [batch_flops(m, b) for b in pool]
-    seen = {pool[i]["images"].shape for i in range(n_check)}
-    for i, b in enumerate(pool):                 # every other canvas once
-        if b["images"].shape not in seen:
-            seen.add(b["images"].shape)
-            state, _ = train_one_epoch(train_step, state, Feed(pool, i, 1),
-                                       0, print_freq=pf)
-    # A stretch as long as the window runs ahead of the device between two
-    # host reads, so that the pinned copies' buffers are all there.
-    state, _ = train_one_epoch(train_step, state,
-                               Feed(pool, n_check, t["warmup_steps"]), 0,
-                               print_freq=pf)
-    sync(device)
-    if device != "cpu":
-        torch.cuda.reset_peak_memory_stats()
-    gc.collect()
-    gc.freeze()          # no collection walks the set-up's objects
-    setup_s = time.perf_counter() - t_start
-
-    feed = Feed(pool, n_check, seconds=seconds)
-    t0 = time.perf_counter()
-    state, _ = train_one_epoch(train_step, state, feed, 1, print_freq=pf)
-    sync(device)
-    window_s = time.perf_counter() - t0
-    steps = feed.served
-    flops = sum(pool_flops[(n_check + i) % len(pool)] for i in range(steps))
-    record = {"mode": "train", "attempted": steps, "failed": 0,
-              "setup_s": setup_s, "window_s": window_s, "steps": steps,
-              "train_samples_s": steps * t["batch"] / window_s,
-              "model_flops": flops,
-              "pace": {"thirds": pace.rate_by_part(
-                  feed.times, [t["batch"]] * steps, window_s)}}
-    if trace:
-        s["state"] = state
-
-        def more_steps() -> float:
-            first = n_check + steps
-            s["state"], _ = train_one_epoch(
-                train_step, s["state"], Feed(pool, first, t["trace_steps"]),
-                1, print_freq=pf)
-            return sum(pool_flops[(first + j) % len(pool)]
-                       for j in range(t["trace_steps"]))
-
-        record.update(probes.traced(more_steps, 1))
-        record["trace_units"] = t["trace_steps"]
-    record["memory_peak_bytes"] = (torch.cuda.max_memory_allocated()
-                                   if device != "cpu" else 0)
-    gc.unfreeze()
-    del state, train_step
-    free(s, device)
-    reference = reference_steps(s["W"], m, cell.config, t, pool[:n_check],
-                                seed, device)
-    record["numbers"] = gaps(s["program"], reference)
-    return record
+    return training.drive(PROGRAM, cell, seed, seconds, trace, t_start,
+                          device, step_hook)
