@@ -1,8 +1,10 @@
 """The port's spans (``toist_tpu_torch/utils/tracing.py``) on the CPU, on a
 tiny model: no ``record_function`` while no profiler records; under a
 profiler, each span of a serving call and of a training step once, nested
-where it belongs, in the exported trace; none left open by a forward that
-raises; the ``[profile]`` line of ``utils/profiling.trace`` names them."""
+where it belongs, in the exported trace (a distillation step's softkd and
+bank spans too, and its k-means counters among its scalars); none left
+open by a forward that raises; the ``[profile]`` line of
+``utils/profiling.trace`` names them."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +19,9 @@ from torch.profiler import ProfilerActivity, profile
 from toist_tpu_torch import config as pconfig
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.predict import Predictor
+from toist_tpu_torch.train.cluster import init_bank
 from toist_tpu_torch.train.criterion import build_weight_dict
+from toist_tpu_torch.train.distill import make_distillation_train_step
 from toist_tpu_torch.train.engine import train_one_epoch
 from toist_tpu_torch.train.state import init_train_state
 from toist_tpu_torch.train.step import make_eval_step, make_train_step
@@ -197,6 +201,61 @@ def test_training_spans_per_step(tiny, tmp_path):
             assert _inside(s, step), name
     assert not {s[0] for s in spans} - {"toist.train_step", "toist.h2d",
                                         "toist.host_read", *STEP_SPANS}
+
+
+def _pair(seed, b=2):
+    """``_batch`` as a distillation pair: the noun stream's boxes tied to
+    tokens 3-4, the student's caption span on token 5."""
+    noun = _batch(seed, b)
+    noun["noun_token_spans"] = np.where(noun["box_valid"][..., None],
+                                        np.int32([3, 4]), -1).astype(np.int32)
+    noun["caption_noun_span"] = np.full((b, 2), -1, np.int32)
+    noun["task_id"] = np.arange(1, b + 1, dtype=np.int32)
+    sth = dict(noun, caption_noun_span=np.full((b, 2), 5, np.int32))
+    return {"noun": noun, "sth": sth}
+
+
+def test_distillation_step_spans_and_counters(tiny, tmp_path):
+    """Two distillation steps: ``toist.softkd`` once in each, inside its
+    step, beside the two ``toist.bank`` calls; the k-means counters among
+    the step's scalars, 32 iterations issued per solve (a solve per image
+    and stream) and at most as many that moved the centers."""
+    cfg, sd = tiny
+    cfg = pconfig.Config.from_sources(None, {
+        "model": dataclasses.asdict(cfg.model),
+        "loss": {"distillation": True, "softkd_loss": True,
+                 "cluster": True, "cluster_memory_size": 16}})
+    sd_t = synth_reference_state_dict(
+        stage_sizes=(1, 1, 1, 1), enc=1, dec=2, d=32, dim_feedforward=64,
+        text_layers=1, text_hidden=32, text_intermediate=64, num_queries=10,
+        vocab_size=300, contrastive_hdim=16, with_masks=False, seed=4)
+    model, teacher = (TOIST.from_state_dict(w, cfg.model, "cpu") for w in
+                      (sd, {k: torch.from_numpy(v) for k, v in sd_t.items()}))
+    bank = init_bank(14, 16, cfg.loss.cluster_num, 32,
+                     torch.Generator().manual_seed(0))
+    state = init_train_state(model, cfg, 10, 100, teacher=teacher,
+                             cluster_bank=bank)
+    step = make_distillation_train_step(cfg, build_weight_dict(cfg.loss,
+                                                               False, 2))
+    scalars = []
+
+    def two_steps():
+        s = state
+        for seed in (20, 21):
+            s, sc = step(s, _pair(seed))
+            scalars.append(sc)
+
+    spans = _spans(two_steps, tmp_path)
+    steps = [s for s in spans if s[0] == "toist.train_step"]
+    kd = [s for s in spans if s[0] == "toist.softkd"]
+    assert len(steps) == len(kd) == 2
+    assert all(_inside(k, top) for k, top in zip(kd, steps))
+    assert len([s for s in spans if s[0] == "toist.bank"]) == 4
+    for sc in scalars:
+        assert sc["kmeans_iters"].dtype == torch.int32
+        assert sc["kmeans_iters"].dim() == sc["kmeans_issued"].dim() == 0
+        assert int(sc["kmeans_issued"]) == 32 * 2 * 2
+        assert 2 * 2 <= int(sc["kmeans_iters"]) <= int(sc["kmeans_issued"])
 
 
 def test_a_forward_that_raises_leaves_no_span_open(tiny, tmp_path,

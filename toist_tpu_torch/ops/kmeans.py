@@ -39,6 +39,17 @@ def kmeans(x: torch.Tensor, init_centers: torch.Tensor, max_iters: int = 32,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [N, D], init_centers [K, D] -> (assignments [N] int64, centers
     [K, D] in x's dtype)."""
+    return kmeans_counted(x, init_centers, max_iters, tol, distance)[:2]
+
+
+def kmeans_counted(x: torch.Tensor, init_centers: torch.Tensor,
+                   max_iters: int = 32, tol: float = 1e-4,
+                   distance: str = "euclidean"
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``kmeans``, and the iterations the while loop would run (int32
+    [], on the device): those that found the centers still moving,
+    ``max_iters`` at most. The other ``max_iters`` minus these are issued
+    and change nothing."""
     K = init_centers.shape[0]
     ks = torch.arange(K, device=x.device)
 
@@ -59,7 +70,7 @@ def kmeans(x: torch.Tensor, init_centers: torch.Tensor, max_iters: int = 32,
         centers = torch.where(running, new, centers)
         shift = torch.where(running, new_shift, shift)
         it = it + running.to(torch.int32)
-    return assign(centers), centers
+    return assign(centers), centers, it
 
 
 def kmeans_predict(x: torch.Tensor, centers: torch.Tensor,

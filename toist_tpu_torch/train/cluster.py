@@ -38,7 +38,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from toist_tpu_torch.ops.kmeans import kmeans, kmeans_predict
+from toist_tpu_torch.ops.kmeans import kmeans_counted, kmeans_predict
 from toist_tpu_torch.utils import dist
 from toist_tpu_torch.utils.tracing import spanned
 
@@ -149,29 +149,35 @@ def update_bank(bank: ClusterBank, features: torch.Tensor,
 def cluster_select(bank: ClusterBank, pooled: torch.Tensor,
                    task_idx: torch.Tensor, valid: torch.Tensor,
                    max_iters: int = 32, tol: float = 1e-4
-                   ) -> Tuple[ClusterBank, torch.Tensor, torch.Tensor]:
+                   ) -> Tuple[ClusterBank, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
     """Per sample, k-means on its task's bank, warm-started from the
     centers the previous sample of that task left (mdetr.py:171-178).
     Returns (bank with the new centers, the chosen center per sample [B, D],
-    the choice [B])."""
+    the choice [B], the k-means iterations that found centers moving,
+    summed over the B solves: int32 [] on the device, of ``max_iters`` x B
+    issued)."""
     centers_all = bank.cluster_centers
     ntasks = centers_all.shape[0]
     tasks = torch.arange(ntasks, device=centers_all.device)
     pooled = pooled.float()
-    feats, choices = [], []
+    feats, choices, iters = [], [], []
     for b in range(pooled.shape[0]):
         t, ok = task_idx[b].long().view(1), valid[b]
         row = t % ntasks
-        _, new_centers = kmeans(bank.feature_bank.index_select(0, row)[0],
-                                centers_all.index_select(0, row)[0],
-                                max_iters=max_iters, tol=tol)
+        _, new_centers, it = kmeans_counted(
+            bank.feature_bank.index_select(0, row)[0],
+            centers_all.index_select(0, row)[0], max_iters=max_iters,
+            tol=tol)
         choice = kmeans_predict(pooled[b][None], new_centers)[0]
         feats.append(new_centers.index_select(0, choice.view(1))[0])
         choices.append(choice)
+        iters.append(it)
         centers_all = torch.where(((tasks == t) & ok)[:, None, None],
                                   new_centers[None], centers_all)
     return (dataclasses.replace(bank, cluster_centers=centers_all),
-            torch.stack(feats), torch.stack(choices))
+            torch.stack(feats), torch.stack(choices),
+            torch.stack(iters).sum(dtype=torch.int32))
 
 
 def snap_text_memory(img_memory: torch.Tensor, text_len: int,
@@ -198,7 +204,10 @@ def teacher_update_and_snap(bank: ClusterBank,
     """Teacher path (update_memory, mdetr.py:105-211): pool the noun spans,
     push them into the bank, snap the noun positions to their k-means
     center. Returns (bank, img_memory_mod, aux); with ``across_ranks`` the
-    bank takes the global batch's rows."""
+    bank takes the global batch's rows. ``aux`` holds the k-means counters
+    of ``cluster_select``: "kmeans_iters" (the device's count of iterations
+    that found centers moving) and "kmeans_issued" (a host integer,
+    ``max_iters`` per solve)."""
     tm = cache["text_memory"].float()
     spans = batch["noun_token_spans"]
     bv = batch["box_valid"] & batch["sample_valid"][:, None]
@@ -209,14 +218,16 @@ def teacher_update_and_snap(bank: ClusterBank,
     g_pooled, g_task0, g_valid, own = _global_rows(pooled, task0, valid,
                                                    across_ranks)
     bank = update_bank(bank, g_pooled, g_task0, g_valid, fifo=fifo)
-    bank, center_feats, choices = cluster_select(bank, g_pooled, g_task0,
-                                                 g_valid, max_iters, tol)
+    bank, center_feats, choices, iters = cluster_select(
+        bank, g_pooled, g_task0, g_valid, max_iters, tol)
     center_feats, choices = center_feats[own], choices[own]
     T = tm.shape[1]
     union = (span_box_masks(spans, T) & bv[..., None]).any(1)
     mod = snap_text_memory(cache["img_memory"], T, union, center_feats,
                            valid)
-    return bank, mod, {"choices": choices, "pooled": pooled, "valid": valid}
+    return bank, mod, {"choices": choices, "pooled": pooled, "valid": valid,
+                       "kmeans_iters": iters,
+                       "kmeans_issued": g_pooled.shape[0] * max_iters}
 
 
 @spanned("toist.bank")
@@ -233,7 +244,8 @@ def student_cluster(bank: ClusterBank, cache: Mapping[str, torch.Tensor],
     gradient reaches the student through the pooled feature only, averaged
     over the samples with a span (``num_valid`` of them, by default the
     batch's). With ``across_ranks`` the k-means runs over the global
-    batch's rows."""
+    batch's rows. ``aux`` holds the k-means counters, as the teacher
+    path's."""
     tm = cache["text_memory"].float()
     T = tm.shape[1]
     m = caption_span_mask(batch, T)
@@ -244,11 +256,12 @@ def student_cluster(bank: ClusterBank, cache: Mapping[str, torch.Tensor],
     task0 = batch["task_id"].long() - 1
     g_pooled, g_task0, g_valid, own = _global_rows(pooled.detach(), task0,
                                                    valid, across_ranks)
-    bank, center_feats, choices = cluster_select(
+    bank, center_feats, choices, iters = cluster_select(
         bank, g_pooled, g_task0, g_valid, max_iters, tol)
     center_feats, choices = center_feats[own], choices[own]
     mod = snap_text_memory(cache["img_memory"], T, m, center_feats, valid)
-    aux = {"choices": choices, "valid": valid}
+    aux = {"choices": choices, "valid": valid, "kmeans_iters": iters,
+           "kmeans_issued": g_pooled.shape[0] * max_iters}
     if train:
         # MSE(pooled, chosen center), averaged over samples (:269-278).
         per = ((pooled - center_feats) ** 2).mean(-1)

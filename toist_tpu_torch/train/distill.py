@@ -29,7 +29,7 @@ from toist_tpu_torch.train.step import (EVAL_KEYS, INPUT_KEYS, TARGET_KEYS,
                                         apply_gradients, batch_to_device,
                                         dropout_generator,
                                         train_batch_to_device)
-from toist_tpu_torch.utils.tracing import spanned
+from toist_tpu_torch.utils.tracing import span, spanned
 
 
 def distillation_losses(state: TrainState,
@@ -39,9 +39,11 @@ def distillation_losses(state: TrainState,
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One microbatch of a distillation pair {"noun": Batch, "sth": Batch}
     -> (weighted total, losses incl. "loss" and the "_*tgt2query*"
-    matchings). Moves ``state.cluster_bank`` on under ``loss.cluster``.
-    Four dropout generators stand for JAX's r1..r4: the teacher's encode
-    and decode, the student's encode and decode."""
+    matchings). Moves ``state.cluster_bank`` on under ``loss.cluster``,
+    and adds the two bank calls' k-means counters as "_kmeans_iters" (on
+    the device) and "_kmeans_issued" (a host integer). Four dropout
+    generators stand for JAX's r1..r4: the teacher's encode and decode,
+    the student's encode and decode."""
     lcfg = cfg.loss
     noun_b, sth_b = batches["noun"], batches["sth"]
     teacher, student = state.teacher.train(), state.model.train()
@@ -53,7 +55,7 @@ def distillation_losses(state: TrainState,
     # Teacher (noun) stream.
     tcache = teacher.encode(*(noun_b[k] for k in INPUT_KEYS), generator=r1)
     if lcfg.cluster:
-        state.cluster_bank, tcache["img_memory_mod"], _ = \
+        state.cluster_bank, tcache["img_memory_mod"], taux = \
             cl.teacher_update_and_snap(
                 state.cluster_bank, tcache, noun_b, lcfg.kmeans_max_iters,
                 lcfg.kmeans_tol, lcfg.fifo_memory, across_ranks=True)
@@ -72,6 +74,8 @@ def distillation_losses(state: TrainState,
                                across_ranks=True)
         losses["loss_cluster_feature"] = saux["loss_cluster_feature"]
         losses["loss_cluster_choice"] = saux["loss_cluster_choice"]
+        for k in ("kmeans_iters", "kmeans_issued"):
+            losses[f"_{k}"] = taux[k] + saux[k]
     sout = student.decode(scache, use_modified_memory=lcfg.cluster,
                           generator=r4)
 
@@ -80,31 +84,32 @@ def distillation_losses(state: TrainState,
     bv, sv = sth_b["box_valid"], sth_b["sample_valid"]
     num_samples = sth_b.get("num_samples_override")
     if lcfg.softkd_loss:
-        if lcfg.aux_loss and "aux_pred_logits" in tout:
-            # Levels aux 0..n-1, then main, in one re-pairing solve.
-            n_aux = tout["aux_pred_logits"].shape[0]
+        with span("toist.softkd"):
+            if lcfg.aux_loss and "aux_pred_logits" in tout:
+                # Levels aux 0..n-1, then main, in one re-pairing solve.
+                n_aux = tout["aux_pred_logits"].shape[0]
 
-            def cat(o, k):
-                return torch.cat([o[f"aux_{k}"], o[k][None]])
+                def cat(o, k):
+                    return torch.cat([o[f"aux_{k}"], o[k][None]])
 
-            def t2q(p):
-                return torch.stack([losses[f"_{p}_tgt2query_{i}"]
-                                    for i in range(n_aux)]
-                                   + [losses[f"_{p}_tgt2query"]])
+                def t2q(p):
+                    return torch.stack([losses[f"_{p}_tgt2query_{i}"]
+                                        for i in range(n_aux)]
+                                       + [losses[f"_{p}_tgt2query"]])
 
-            kd = crit.loss_softkd_levels(
-                cat(tout, "pred_logits"), cat(sout, "pred_logits"),
-                cat(tout, "pred_boxes"), cat(sout, "pred_boxes"),
-                t2q("noun"), t2q("sth"), bv, sv, num_samples)
-            losses["loss_softkd"] = kd[-1]
-            for i in range(n_aux):
-                losses[f"loss_softkd_{i}"] = kd[i]
-        else:
-            losses["loss_softkd"] = crit.loss_softkd(
-                tout["pred_logits"], sout["pred_logits"],
-                tout["pred_boxes"], sout["pred_boxes"],
-                losses["_noun_tgt2query"], losses["_sth_tgt2query"], bv, sv,
-                num_samples)
+                kd = crit.loss_softkd_levels(
+                    cat(tout, "pred_logits"), cat(sout, "pred_logits"),
+                    cat(tout, "pred_boxes"), cat(sout, "pred_boxes"),
+                    t2q("noun"), t2q("sth"), bv, sv, num_samples)
+                losses["loss_softkd"] = kd[-1]
+                for i in range(n_aux):
+                    losses[f"loss_softkd_{i}"] = kd[i]
+            else:
+                losses["loss_softkd"] = crit.loss_softkd(
+                    tout["pred_logits"], sout["pred_logits"],
+                    tout["pred_boxes"], sout["pred_boxes"],
+                    losses["_noun_tgt2query"], losses["_sth_tgt2query"],
+                    bv, sv, num_samples)
     if lcfg.nsthl2_loss:
         losses["loss_nsthl2"] = crit.loss_nsthl2(
             tcache["text_memory"], scache["text_memory"],
@@ -119,18 +124,37 @@ def make_distillation_train_step(cfg: Config,
                                  weight_dict: Mapping[str, float]
                                  ) -> Callable:
     """(state, {"noun": Batch, "sth": Batch}) -> (state, scalars), with the
-    teacher and the bank in ``state``. The scalars add the bank's per-task
-    ``bank_update_count`` and ``bank_full`` ([T] int32)."""
+    teacher and the bank in ``state``. Under ``loss.cluster`` the scalars
+    add the bank's per-task ``bank_update_count`` and ``bank_full`` ([T]
+    int32), and the step's k-means counters summed over its microbatches:
+    ``kmeans_iters``, the iterations that found centers moving (int32 on
+    the device, read with the other scalars), and ``kmeans_issued``, the
+    iterations queued (a host integer in a CPU tensor). The bank runs the
+    global batch's solves on every rank, so neither is summed over the
+    ranks."""
 
     @spanned("toist.train_step")
     def train_step(state: TrainState, batches) -> Tuple[TrainState, Dict]:
         batches = train_batch_to_device(batches, state.masters[0][1].device)
+        counts = []
+
+        def losses_fn(*args):
+            total, losses = distillation_losses(*args)
+            if "_kmeans_iters" in losses:
+                counts.append((losses["_kmeans_iters"],
+                               losses["_kmeans_issued"]))
+            return total, losses
+
         scalars = accumulate_gradients(state, batches, cfg, weight_dict,
-                                       distillation_losses)
+                                       losses_fn)
         state = apply_gradients(state, cfg, scalars)
         if state.cluster_bank is not None:
             scalars["bank_update_count"] = state.cluster_bank.update_count
             scalars["bank_full"] = state.cluster_bank.full.to(torch.int32)
+        if counts:
+            iters, issued = zip(*counts)
+            scalars["kmeans_iters"] = sum(iters[1:], iters[0])
+            scalars["kmeans_issued"] = torch.tensor(sum(issued))
         return state, scalars
 
     return train_step
