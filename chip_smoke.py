@@ -28,9 +28,13 @@ Phases, each of which raises on failure (non-zero exit):
      checkpoint's layout, answering batches of 8 on the 800x1344 and
      1344x800 canvases; every forward must launch the tensor-core forward
      12 times, and every call after the warm-up must replay the image and
-     text encoders' CUDA graph (``Predictor.graphs``' counters);
+     text encoders' CUDA graph (``Predictor.graphs``' counters); the
+     warm-up launches the frozen-norm kernel 100 times per trunk pass (two
+     per capture: the side-stream pass and the captured one), a replayed
+     call none, and nothing takes the plain route;
   5. slice kernel vs plain: the same weights in f32 (TF32 off) on one batch,
-     once through the kernel and once through the plain attention;
+     once through the kernels (attention and frozen norm) and once through
+     the plain attention and the trunk's plain route (``plain_trunk``);
      pred_logits and pred_boxes must agree within 2e-3;
   6. attention backward and dropout vs plain: at the training shapes
      (encoder [6,1156,256], decoder cross [6,100,256] over [6,1156,256], and
@@ -57,13 +61,16 @@ Phases, each of which raises on failure (non-zero exit):
      f32 master weights, batch 6, dropout 0.1, one warm-up step and then an
      epoch through train_one_epoch / make_train_step; every loss finite,
      12 forward, 12 dK/dV, 12 dQ attention launches (all 36 on the
-     tensor-core route) and 1 LSA launch per step, trainable parameters
+     tensor-core route), 1 LSA launch, and 100 forward and 90 backward
+     frozen-norm launches (the stem and layer1 are frozen) per step,
+     trainable parameters
      changed, frozen ones not, the EMA moved; step ms, img/s and peak
      memory; then torch.profiler over 3 steps on the largest canvas: device
      kernel ms per step by kind against unprofiled step ms (busy share);
   9. one training step with the kernels vs one without, in f32, dropout 0
      (the scalar forward and backward route). The run without kernels uses
-     the plain attention and takes the criterion to the CPU (plain LSA). The
+     the plain attention and the trunk's plain route, and takes the
+     criterion to the CPU (plain LSA). The
      LSA kernel and the plain solver give equal assignments on the same costs;
      a problem that the two runs match differently must be a near-tie (the
      two assignments' costs within 1e-4: a random model's queries predict
@@ -85,7 +92,22 @@ Phases, each of which raises on failure (non-zero exit):
      the LSA kernel on phase 7's continuous, 100x100, softkd and real
      matcher costs, with the steps of the longest problem and the ns per
      step. Beside each, the kernel's bound and, for the forward, the exp2
-     floor of the card's special-function units;
+     floor of the card's special-function units. Then the frozen-norm
+     epilogue kernel (csrc/frozen_norm_act.cu; no TPU counterpart): at the
+     training trunk's layer1 and layer3 epilogues (batch 6, 832x1344,
+     bf16), each form's output and gradients (dz, and the residual's or
+     the downsample pair's) through the kernels under autograd against
+     autograd through the plain route, within 1.5e-2 of each tensor's max
+     abs away from the ReLU's kink; then at the
+     serving trunk's layer1, layer3 and layer4 epilogue shapes (batch 8,
+     800x1344 canvas, bf16): norm + ReLU at the block width, and norm +
+     identity residual (+ the stage's pad mask) and norm + downsample pair
+     at the block output, forward and backward, each beside its bytes
+     bound at 3.35 TB/s and the plain route's ms; a ResNet-101 trunk
+     forward at that canvas must take the kernel 100 times and the plain
+     route 0 times, and its device-busy ms (a profiler trace's summed
+     kernel time) is given beside the former composition's (the plain
+     route on the card);
  11. the user's entry point: toist_tpu_torch.main from parse_args at full
      width in bf16 on the fixture (2 tasks x 30 images per split), the
      seeded weights given through --load (word embeddings cut to the
@@ -237,6 +259,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -259,6 +282,11 @@ TOL = {"float32": (2e-5, 0.0), "bfloat16": (3e-2, 3e-2)}   # (atol, rtol)
 REL_TOL = {"float32": 5e-5, "bfloat16": 1.5e-2}
 SLICE_TOL = 2e-3
 LAUNCHES_PER_FORWARD = 12   # 6 encoder self-attn + 6 decoder cross-attn
+# Frozen-norm epilogues (ops/frozen_norm.py) of one ResNet-101 forward: the
+# stem's and three in each of the 33 blocks; and of a training step's
+# backward, where the stem and layer1 are frozen: three in each of the 30
+# blocks of layer2-4.
+FN_FORWARD, FN_BACKWARD = 100, 90
 TRAIN_B = 6                 # optim.train_batch_size
 DROP_RATE = 0.1
 LOSS_RTOL = 1e-4
@@ -322,6 +350,32 @@ def device_ms(fn, iters=20, repeats=5):
     return statistics.median(runs)
 
 
+def busy_ms(fn, n=3):
+    """Device-busy ms per call of fn: the summed durations of the device
+    events (kernels, copies, sets) of n calls in a torch.profiler trace,
+    after a warm-up call. For work whose host issue outlasts its device
+    time, where device_ms's spin cannot hold the card long enough."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    us = sum(float(e.get("dur", 0.0)) for e in events
+             if e.get("ph") == "X" and e.get("cat") in (
+                 "kernel", "gpu_memcpy", "gpu_memset"))
+    return us / 1e3 / n
+
+
 def phase_device():
     import torch
 
@@ -372,6 +426,12 @@ def ptxas_report(text):
                              mangled)
             if name.startswith("lsa") and args:   # <int K>, 0: shared memory
                 name += f"<K={args.group(2)}>"
+            elif name.startswith("frozen_norm") and args:
+                # <typename T, int MODE[, bool MASK]>: MODE 0 norm, 1 with
+                # a residual, 2 with the downsample pair
+                dt = "f32," if args.group(1) == "f" else "bf16,"
+                mask = ",mask" if args.group(3) == "1" else ""
+                name += f"<{dt}mode {args.group(2)}{mask}>"
             elif args:   # <typename T, int HD>, or <int HD, bool DROP> (bf16)
                 dt = {"f": "f32,", "": "bf16,"}.get(args.group(1), "bf16,")
                 drop = {"1": ",dropout", "0": ",no dropout"}.get(
@@ -391,10 +451,10 @@ def ptxas_report(text):
 
 
 def phase_build():
-    from toist_tpu_torch.ops import _build, lsa
+    from toist_tpu_torch.ops import _build, frozen_norm, lsa
     from toist_tpu_torch.ops.flash_attention import KERNEL_SOURCES
 
-    sources = KERNEL_SOURCES + (lsa.KERNEL_SOURCE,)
+    sources = KERNEL_SOURCES + (lsa.KERNEL_SOURCE, frozen_norm.SOURCE)
     t0 = time.perf_counter()
     _build.load_libraries(sources)
     secs = {src: _build.BUILD_SECONDS[src] for src in sources}
@@ -630,11 +690,21 @@ def phase_slice(smi, has_pil):
 
     rng = np.random.default_rng(SEED)
     batches = _requests(rng, predictor.spec, predictor, cfg)
+    reset_counts()
     for b in batches:                       # warm-up: one pass per canvas
         predictor.predict_batch(b)
     torch.cuda.synchronize()
     graphs = predictor.graphs
     warm = (graphs.captures, graphs.replays, graphs.eager)
+    # The trunk runs its epilogues at capture only: the side-stream pass
+    # and the captured one; a replay calls no Python.
+    warm_fn = {k: v for k, v in read_counts().items() if k in FN_COUNTERS}
+    want_fn = fn_counts(FN_FORWARD * (2 * warm[0] + warm[2]))
+    log(f"[slice] frozen-norm counts over the warm-up ({warm[0]} captures, "
+        f"{warm[2]} eager calls): {json.dumps(warm_fn)}")
+    if warm_fn != want_fn:
+        raise AssertionError(f"frozen-norm launches in the warm-up: "
+                             f"{warm_fn}, not {want_fn}")
 
     # The counted run: every request below goes through the main path.
     reset_counts()
@@ -648,9 +718,10 @@ def phase_slice(smi, has_pil):
             n_valid = int(b["sample_valid"].sum())
             _check_results(res, n_valid, m.num_queries)
             after = read_counts()
-            got = {k: after[k] - before[k] for k in ("fwd", "fwd_tc")}
+            got = {k: after[k] - before[k] for k in
+                   ("fwd", "fwd_tc", *FN_COUNTERS)}
             if got != {"fwd": LAUNCHES_PER_FORWARD,
-                       "fwd_tc": LAUNCHES_PER_FORWARD}:
+                       "fwd_tc": LAUNCHES_PER_FORWARD, **fn_counts()}:
                 raise AssertionError(f"kernel launches in one bf16 forward: "
                                      f"{got}")
             lat.append((b["images"].shape[1:3], n_valid, dt))
@@ -692,7 +763,7 @@ def phase_slice(smi, has_pil):
     log(f"[slice] full batches of {cfg.optim.valid_batch_size}: "
         f"{img_s:.2f} img/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
-    return state_dict, batches[0], launches
+    return state_dict, batches[0], dict(launches, warm_fn=warm_fn)
 
 
 def phase_slice_kernel_vs_plain(state_dict, batch):
@@ -705,9 +776,21 @@ def phase_slice_kernel_vs_plain(state_dict, batch):
 
     cfg = Config.from_sources(None, {"model": {"compute_dtype": "float32"}})
     model = TOIST.from_state_dict(state_dict, cfg.model, device="cuda")
+    reset_counts()
     out_k, _ = eval_forward(model, batch)
+    with_kernels = read_counts()
     set_fused_attention(model, False)
-    out_p, _ = eval_forward(model, batch)
+    reset_counts()
+    with plain_trunk():
+        out_p, _ = eval_forward(model, batch)
+    without = read_counts()
+    want = dict({k: 0 for k in without}, fwd=LAUNCHES_PER_FORWARD,
+                lsa=with_kernels["lsa"], **fn_counts(FN_FORWARD))
+    want_plain = dict({k: 0 for k in without}, lsa=without["lsa"],
+                      **fn_counts(plain=FN_FORWARD))
+    if with_kernels != want or without != want_plain:
+        raise AssertionError(f"slice kernel vs plain launches: "
+                             f"{with_kernels}, {without}")
     errs = {}
     for key in ("pred_logits", "pred_boxes"):
         a, b = out_k[key], out_p[key]
@@ -724,24 +807,57 @@ def phase_slice_kernel_vs_plain(state_dict, batch):
 COUNTERS = {"fwd": "launches", "dkv": "dkv_launches", "dq": "dq_launches",
             "fwd_tc": "fwd_tc_launches", "dkv_tc": "dkv_tc_launches",
             "dq_tc": "dq_tc_launches", "dropout": "dropout_launches"}
+FN_COUNTERS = {"fn": "launches", "fn_bwd": "bwd_launches",
+               "fn_plain": "plain"}
+
+
+def fn_counts(fwd=0, bwd=0, plain=0):
+    """Expected frozen-norm counts: forward and backward kernel launches
+    and plain-route calls."""
+    return {"fn": fwd, "fn_bwd": bwd, "fn_plain": plain}
 
 
 def reset_counts():
     from toist_tpu_torch.ops.flash_attention import flash_attention
+    from toist_tpu_torch.ops.frozen_norm import frozen_norm
     from toist_tpu_torch.ops.lsa import solve_lsa_batch
 
     for name in COUNTERS.values():
         setattr(flash_attention, name, 0)
+    for name in FN_COUNTERS.values():
+        setattr(frozen_norm, name, 0)
     solve_lsa_batch.launches = 0
 
 
 def read_counts():
     from toist_tpu_torch.ops.flash_attention import flash_attention
+    from toist_tpu_torch.ops.frozen_norm import frozen_norm
     from toist_tpu_torch.ops.lsa import solve_lsa_batch
 
     counts = {k: getattr(flash_attention, n) for k, n in COUNTERS.items()}
     counts["lsa"] = solve_lsa_batch.launches
+    counts.update({k: getattr(frozen_norm, n) for k, n in FN_COUNTERS.items()})
     return counts
+
+
+@contextlib.contextmanager
+def plain_trunk():
+    """The frozen-norm trunk's epilogues on the plain route (the modules'
+    math, as on the CPU), counted on ``frozen_norm.plain``: with
+    ``set_fused_attention(model, False)``, the side of a kernels-vs-plain
+    comparison that runs none of the port's kernels in the model."""
+    import toist_tpu_torch.models.resnet as resnet_mod
+    from toist_tpu_torch.ops.frozen_norm import frozen_norm, frozen_norm_plain
+
+    def plain(z, norm, residual=None, downsample=None, pad_mask=None):
+        frozen_norm.plain += 1
+        return frozen_norm_plain(z, norm, residual, downsample, pad_mask)
+
+    resnet_mod.frozen_norm = plain
+    try:
+        yield
+    finally:
+        resnet_mod.frozen_norm = frozen_norm
 
 
 def _rel_err(got, want):
@@ -1013,7 +1129,8 @@ def phase_train(smi, state_dict, root):
     want = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
             "dq": LAUNCHES_PER_FORWARD, "fwd_tc": LAUNCHES_PER_FORWARD,
             "dkv_tc": LAUNCHES_PER_FORWARD, "dq_tc": LAUNCHES_PER_FORWARD,
-            "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1}
+            "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1,
+            **fn_counts(FN_FORWARD, FN_BACKWARD)}
     bad = [st for st in steps if st["launches"] != want
            or not all(math.isfinite(v) for v in st["scalars"].values())]
     if len(steps) < 5 or len(canvases) < 2 or bad:
@@ -1191,7 +1308,8 @@ def phase_train_kernel_vs_plain(state_dict, batch):
     # Without: plain attention, the criterion and its plain LSA on the CPU.
     set_fused_attention(model, False)
     reset_counts()
-    out_p, _ = model(*args)
+    with plain_trunk():
+        out_p, _ = model(*args)
     out_p = {k: v.cpu() for k, v in out_p.items()}
     t2q_p = match(out_p, "cpu")
     # Problems whose two runs matched differently must be near-ties: both
@@ -1250,12 +1368,14 @@ def phase_train_kernel_vs_plain(state_dict, batch):
     # f32: the scalar forward and backward route, no dropout.
     want = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
             "dq": LAUNCHES_PER_FORWARD, "fwd_tc": 0, "dkv_tc": 0,
-            "dq_tc": 0, "dropout": 0, "lsa": 1}
+            "dq_tc": 0, "dropout": 0, "lsa": 1,
+            **fn_counts(FN_FORWARD, FN_BACKWARD)}
     if (not solver_equal or max(gaps, default=0.0) > 1e-4
             or loss_err > LOSS_RTOL or grad_err > STEP_GRAD_TOL
             or noise > 1e-4
             or set(gk) != set(gp) or with_kernels != want
-            or any(without.values())):
+            or without != dict({k: 0 for k in without},
+                               **fn_counts(plain=FN_FORWARD))):
         raise AssertionError(f"training step kernels vs plain: {res}")
     cost_t, n_valid, _ = assignment_problem(cost, bv.repeat(L, 1).cpu())
     return res, (cost_t.numpy(), n_valid.numpy())
@@ -1372,6 +1492,187 @@ def phase_times(smi, lsa_cases, lsa_inputs):
             out[name][dt_name] = per
     out["lsa"] = {case["case"]: lsa_time(smi, case, lsa_inputs)
                   for case in lsa_cases if case["case"] in lsa_inputs}
+    return out
+
+
+# The serving trunk's epilogues (batch 8 on 800x1344, output strides 4,
+# 16, 32): (stage, feature h, w, block width).
+FN_STAGES = (("layer1", 200, 336, 64), ("layer3", 50, 84, 256),
+             ("layer4", 25, 42, 512))
+# The training trunk's (batch 6 on 832x1344, strides 4 and 16).
+FN_TRAIN_STAGES = (("layer1", 208, 336, 64), ("layer3", 52, 84, 256))
+FN_FORMS = ("norm_relu", "residual", "residual_mask", "downsample",
+            "downsample_mask")
+
+
+def phase_frozen_norm(smi):
+    """Phase 10's frozen-norm part: at the training trunk's epilogues, in
+    bf16, every form's output and gradients through ``frozen_norm`` (the
+    kernels, forward and backward, under autograd) against autograd through
+    ``frozen_norm_plain``; device_ms of the kernel and of the plain route at
+    the serving trunk's epilogues, forward and backward, their bytes bounds;
+    then a ResNet-101 trunk forward's launch counts and device-busy ms
+    against the former composition's."""
+    import torch
+
+    import toist_tpu_torch.models.resnet as resnet_mod
+    from toist_tpu_torch.ops import frozen_norm as fn_mod
+    from toist_tpu_torch.ops.frozen_norm import frozen_norm, frozen_norm_plain
+
+    cl, dt = torch.channels_last, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def norm(c):
+        n = resnet_mod.FrozenBatchNorm2d(c).to("cuda")
+        n.weight.uniform_(0.5, 1.5, generator=g)
+        n.bias.normal_(0, 0.3, generator=g)
+        n.running_mean.normal_(0, 0.5, generator=g)
+        n.running_var.uniform_(0.1, 2.1, generator=g)
+        return n.to(dt)
+
+    def act(c, h, w, b=B):
+        return torch.randn((b, c, h, w), generator=g, device="cuda",
+                           dtype=dt).contiguous(memory_format=cl)
+
+    def pad(b):
+        mask = torch.zeros((b, 832, 1344), dtype=torch.bool,
+                           device="cuda")
+        mask[b // 2:, 600:] = True
+        mask[-1, :, 1000:] = True
+        return mask
+
+    out = {"shapes": {}, "grads": {}}
+    for stage, h, w, width in FN_TRAIN_STAGES:
+        for form in FN_FORMS:
+            c = width if form == "norm_relu" else 4 * width
+            z, other, bn, bn_ds = act(c, h, w, TRAIN_B), \
+                act(c, h, w, TRAIN_B), norm(c), norm(c)
+            pm = pad(TRAIN_B) if form.endswith("_mask") else None
+            gy = act(c, h, w, TRAIN_B)
+
+            def run(fn):
+                zz = z.detach().requires_grad_()
+                oo = other.detach().requires_grad_()
+                kw = ({"residual": oo} if form.startswith("residual") else
+                      {"downsample": (oo, bn_ds)}
+                      if form.startswith("downsample") else {})
+                y = fn(zz, bn, pad_mask=pm, **kw)
+                dz, do = torch.autograd.grad(y, (zz, oo), gy,
+                                             allow_unused=True)
+                return y.detach(), dz, do
+
+            before = (frozen_norm.launches, frozen_norm.bwd_launches)
+            y, dz, do = run(frozen_norm)
+            torch.cuda.synchronize()
+            launched = (frozen_norm.launches - before[0],
+                        frozen_norm.bwd_launches - before[1])
+            py, pdz, pdo = run(frozen_norm_plain)
+            # Where one side's output is 0 and the other's is not, the
+            # pre-activation is within the forward's rounding of 0 (the
+            # ReLU's kink): there the two gradients may rightly differ, so
+            # they are compared everywhere else, and the kink's outputs
+            # are held to the forward's tolerance.
+            kink = (y > 0) != (py > 0)
+            top = py.float().abs().max().item()
+            kink_top = (torch.maximum(y.float().abs(), py.float().abs())
+                        [kink].max().item() if kink.any() else 0.0)
+            r = {"shape": list(z.shape), "fwd_err": _rel_err(y, py),
+                 "dz_err": _rel_err(dz.masked_fill(kink, 0),
+                                    pdz.masked_fill(kink, 0)),
+                 "kink_share": kink.float().mean().item(),
+                 "kink_output": kink_top / top, "launches": launched,
+                 "mask_stride": 832 // h if pm is not None else None}
+            if do is not None or pdo is not None:
+                r["dother_err"] = _rel_err(do.masked_fill(kink, 0),
+                                           pdo.masked_fill(kink, 0))
+            out["grads"][f"{stage}.{form}"] = r
+            log(f"[frozen_norm] autograd vs plain {stage} {form} "
+                f"{json.dumps(r)}")
+            errs = [r[k] for k in ("fwd_err", "dz_err", "dother_err",
+                                   "kink_output") if k in r]
+            if (max(errs) > REL_TOL["bfloat16"] or launched != (1, 1)
+                    or r["kink_share"] > 1e-2
+                    or (form == "norm_relu") != (do is None)
+                    or (do is None) != (pdo is None)):
+                raise AssertionError(f"frozen_norm {stage} {form}: kernels "
+                                     f"vs plain under autograd {r}")
+            del z, other, y, dz, do, py, pdz, pdo, gy
+
+    for stage, h, w, width in FN_STAGES:
+        stride = 800 // h
+        mask = torch.zeros((B, 800, 1344), dtype=torch.bool, device="cuda")
+        mask[B // 2:, 600:] = True
+        for form, c in (("norm_relu", width), ("residual", 4 * width),
+                        ("residual_mask", 4 * width),
+                        ("downsample", 4 * width)):
+            z, other, bn, bn_ds = act(c, h, w), act(c, h, w), norm(c), \
+                norm(c)
+            kw = ({"residual": other} if form.startswith("residual") else
+                  {"downsample": (other, bn_ds)} if form == "downsample"
+                  else {})
+            pm = mask if form == "residual_mask" else None
+            e = z.numel() * z.element_size()
+            n_in = 1 + (form != "norm_relu")
+            fwd_bytes = (n_in + 1) * e + (B * h * w if pm is not None else 0)
+            bwd_bytes = (2 + 1 + (form != "norm_relu")) * e
+            with torch.no_grad():
+                y = frozen_norm(z, bn, pad_mask=pm, **kw)
+                want = frozen_norm_plain(z, bn, kw.get("residual"),
+                                         kw.get("downsample"), pm)
+                err = _rel_err(y, want)
+                if err > REL_TOL["bfloat16"]:
+                    raise AssertionError(f"frozen_norm {stage} {form}: "
+                                         f"error {err} against the plain "
+                                         f"route")
+                ms = device_ms(lambda: frozen_norm(z, bn, pad_mask=pm, **kw))
+                plain_ms = device_ms(lambda: frozen_norm_plain(
+                    z, bn, kw.get("residual"), kw.get("downsample"), pm))
+            gy = torch.randn_like(y)
+            bwd_ms = device_ms(lambda: fn_mod._launch_bwd(
+                y, gy, bn, bn_ds if form == "downsample" else None,
+                form.startswith("residual"), form == "downsample"))
+            t = {"shape": [B, c, h, w], "ms": ms,
+                 "bound_ms": fwd_bytes / PEAK_BYTES_S * 1e3,
+                 "plain_ms": plain_ms, "bwd_ms": bwd_ms,
+                 "bwd_bound_ms": bwd_bytes / PEAK_BYTES_S * 1e3,
+                 "max_rel_err": err,
+                 "mask_stride": stride if pm is not None else None}
+            t["bound_share"] = t["bound_ms"] / ms
+            t["bwd_bound_share"] = t["bwd_bound_ms"] / bwd_ms
+            out["shapes"][f"{stage}.{form}"] = t
+            log(f"[times] frozen_norm {stage} {form} {json.dumps(t)} | {smi}")
+            del z, other, y, want, gy
+
+    torch.manual_seed(SEED)
+    net = resnet_mod.Backbone("resnet101").to("cuda", dt).to(
+        memory_format=cl).eval()
+    x = torch.randn((B, 3, 800, 1344), generator=g, device="cuda",
+                    dtype=dt).contiguous(memory_format=cl)
+    mask = torch.zeros((B, 800, 1344), dtype=torch.bool, device="cuda")
+    mask[B // 2:, :, 1000:] = True
+    with torch.no_grad():
+        before = (frozen_norm.launches, frozen_norm.plain)
+        net(x, mask)
+        counts = (frozen_norm.launches - before[0],
+                  frozen_norm.plain - before[1])
+        if counts != (100, 0):
+            raise AssertionError(f"a ResNet-101 forward took the kernel "
+                                 f"{counts[0]} and the plain route "
+                                 f"{counts[1]} times, not 100 and 0")
+        trunk_ms = busy_ms(lambda: net(x, mask))
+        resnet_mod.frozen_norm = (
+            lambda z, norm, residual=None, downsample=None, pad_mask=None:
+            frozen_norm_plain(z, norm, residual, downsample, pad_mask))
+        try:
+            trunk_plain_ms = busy_ms(lambda: net(x, mask))
+        finally:
+            resnet_mod.frozen_norm = frozen_norm
+    out.update(trunk_launches=counts[0], trunk_plain_calls=counts[1],
+               trunk_ms=trunk_ms, trunk_plain_ms=trunk_plain_ms)
+    log(f"[times] frozen_norm: a ResNet-101 forward on [{B},3,800,1344] "
+        f"bf16 launches the kernel {counts[0]} times, the plain route "
+        f"{counts[1]}; trunk device-busy ms {trunk_ms:.3f} against "
+        f"{trunk_plain_ms:.3f} with the former composition | {smi}")
     return out
 
 
@@ -1736,12 +2037,13 @@ def phase_main(smi, state_dict, root):
                   "dq": LAUNCHES_PER_FORWARD, "fwd_tc": LAUNCHES_PER_FORWARD,
                   "dkv_tc": LAUNCHES_PER_FORWARD,
                   "dq_tc": LAUNCHES_PER_FORWARD,
-                  "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1}
+                  "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1,
+                  **fn_counts(FN_FORWARD, FN_BACKWARD)}
     # Eval forward: the tensor-core forward only (f32 route = fwd - fwd_tc
     # = 0), no backward, one LSA for the eval losses.
     want_eval = {k: 0 for k in want_train}
     want_eval.update(fwd=LAUNCHES_PER_FORWARD, fwd_tc=LAUNCHES_PER_FORWARD,
-                     lsa=1)
+                     lsa=1, fn=FN_FORWARD)
     bad_train = [c for c in hooks.train if c != want_train]
     bad_eval = [c for run in hooks.evals for c in run["launches"]
                 if c != want_eval]
@@ -1848,10 +2150,13 @@ def phase_distill(smi, root, teacher_ckpt):
     kinds = {r["kind"] for r in records}
     want_train = {k: 2 * LAUNCHES_PER_FORWARD for k in
                   ("fwd", "dkv", "dq", "fwd_tc", "dkv_tc", "dq_tc")}
-    want_train.update(dropout=6 * LAUNCHES_PER_FORWARD, lsa=3)
+    # Two models, forward and backward, per step; the cluster eval runs the
+    # student alone.
+    want_train.update(dropout=6 * LAUNCHES_PER_FORWARD, lsa=3,
+                      **fn_counts(2 * FN_FORWARD, 2 * FN_BACKWARD))
     want_eval = {k: 0 for k in want_train}
     want_eval.update(fwd=LAUNCHES_PER_FORWARD, fwd_tc=LAUNCHES_PER_FORWARD,
-                     lsa=1)
+                     lsa=1, fn=FN_FORWARD)
     bad_train = [c for c in hooks.train if c != want_train]
     bad_eval = [c for run in hooks.evals for c in run["launches"]
                 if c != want_eval]
@@ -2156,7 +2461,9 @@ def phase_distill_kernel_vs_plain(student_sd, teacher_sd, bank0, batch):
         matching.solve_lsa_batch = crit.solve_lsa_batch = solve
         try:
             reset_counts()
-            sc = accumulate_gradients(st, x, cfg, wd, distillation_losses)
+            with (contextlib.nullcontext() if fused else plain_trunk()):
+                sc = accumulate_gradients(st, x, cfg, wd,
+                                          distillation_losses)
             torch.cuda.synchronize()
             counts = read_counts()
         finally:
@@ -2214,7 +2521,9 @@ def phase_distill_kernel_vs_plain(student_sd, teacher_sd, bank0, batch):
     over = [(e, k) for e, k in grad_errs
             if e > STEP_GRAD_TOL and e > 2 * floor[k]]
     want = {k: 2 * LAUNCHES_PER_FORWARD for k in ("fwd", "dkv", "dq")}
-    want.update(fwd_tc=0, dkv_tc=0, dq_tc=0, dropout=0, lsa=3)
+    want.update(fwd_tc=0, dkv_tc=0, dq_tc=0, dropout=0, lsa=3,
+                **fn_counts(2 * FN_FORWARD, 2 * FN_BACKWARD))
+    want_plain = dict({k: 0 for k in want}, **fn_counts(plain=2 * FN_FORWARD))
     res = {"solver_vs_plain_on_same_costs": solver,
            "problems_matched_differently_across_runs":
                [len(g) for g in replayed],
@@ -2246,7 +2555,7 @@ def phase_distill_kernel_vs_plain(student_sd, teacher_sd, bank0, batch):
             or loss_err > LOSS_RTOL or over
             or noise > ZERO_TOL or set(gk) != set(gp)
             or {w for w, _ in gk} != {"student", "teacher"}
-            or with_kernels != want or any(without.values())):
+            or with_kernels != want or without != want_plain):
         raise AssertionError(f"distillation step kernels vs plain: {res}")
     return res
 
@@ -2259,10 +2568,11 @@ SEG_SETS = ["model.mask_model=smallconv", "model.frozen_detector=true",
 # attention backward, one matcher solve.
 SEG_TRAIN_LAUNCHES = {"fwd": LAUNCHES_PER_FORWARD, "dkv": 0, "dq": 0,
                       "fwd_tc": LAUNCHES_PER_FORWARD, "dkv_tc": 0, "dq_tc": 0,
-                      "dropout": LAUNCHES_PER_FORWARD, "lsa": 1}
+                      "dropout": LAUNCHES_PER_FORWARD, "lsa": 1,
+                      **fn_counts(FN_FORWARD)}
 SEG_EVAL_LAUNCHES = {"fwd": LAUNCHES_PER_FORWARD, "dkv": 0, "dq": 0,
                      "fwd_tc": LAUNCHES_PER_FORWARD, "dkv_tc": 0, "dq_tc": 0,
-                     "dropout": 0, "lsa": 1}
+                     "dropout": 0, "lsa": 1, **fn_counts(FN_FORWARD)}
 MASK_HEAD = ("bbox_attention.", "mask_head.")
 
 
@@ -2606,8 +2916,10 @@ def phase_seg_kernel_vs_plain(cfg, weights):
         for name, fused in (("kernels", True), ("plain", False)):
             set_fused_attention(model, fused)
             before = read_counts()
-            out, cache = model(*(x[k] for k in INPUT_KEYS))
-            out["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
+            with (contextlib.nullcontext() if fused else plain_trunk()):
+                out, cache = model(*(x[k] for k in INPUT_KEYS))
+                out["pred_masks"] = model.compute_masks(cache,
+                                                        out["hs"][-1])
             after = read_counts()
             outs[name] = (out, {k: after[k] - before[k] for k in after})
         out = outs["kernels"][0]
@@ -2764,11 +3076,12 @@ DP_TIMEOUT = 420      # seconds for one torchrun
 DP_TRAIN = {"fwd": LAUNCHES_PER_FORWARD, "dkv": LAUNCHES_PER_FORWARD,
             "dq": LAUNCHES_PER_FORWARD, "fwd_tc": LAUNCHES_PER_FORWARD,
             "dkv_tc": LAUNCHES_PER_FORWARD, "dq_tc": LAUNCHES_PER_FORWARD,
-            "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1}
+            "dropout": 3 * LAUNCHES_PER_FORWARD, "lsa": 1,
+            **fn_counts(FN_FORWARD, FN_BACKWARD)}
 DP_DISTILL = {k: 2 * v for k, v in DP_TRAIN.items()}
 DP_DISTILL["lsa"] = 3
 DP_EVAL = dict({k: 0 for k in DP_TRAIN}, fwd=LAUNCHES_PER_FORWARD,
-               fwd_tc=LAUNCHES_PER_FORWARD, lsa=1)
+               fwd_tc=LAUNCHES_PER_FORWARD, lsa=1, fn=FN_FORWARD)
 
 
 def _digest(tensors):
@@ -3179,7 +3492,12 @@ def phase_dp(smi, root):
 # -- phase 15: EfficientNet-B3 with pretrained files, remat, tensor parallel --
 
 EFFNET = "timm_tf_efficientnet_b3_ns"   # MDETR's published B3 backbone
-REMAT_TRAIN = dict(DP_TRAIN, fwd=18, fwd_tc=18, dropout=18 + 24)
+# With remat the 30 trained blocks of layer2-4 run their epilogues again
+# in the backward.
+REMAT_TRAIN = dict(DP_TRAIN, fwd=18, fwd_tc=18, dropout=18 + 24,
+                   fn=FN_FORWARD + FN_BACKWARD)
+# An EfficientNet trunk has no frozen-norm epilogue.
+EFFNET_TRAIN = dict(DP_TRAIN, **fn_counts())
 TP_SETS = ["run.mesh_shape=[-1,2]", 'run.mesh_axes=["data","model"]']
 VIS_MAX = 20
 
@@ -3256,7 +3574,8 @@ def _f32_kernel_vs_plain(label, model, batch):
     out_k, _ = eval_forward(model, batch)
     launches = read_counts()
     set_fused_attention(model, False)
-    out_p, _ = eval_forward(model, batch)
+    with plain_trunk():
+        out_p, _ = eval_forward(model, batch)
     set_fused_attention(model, True)
     errs = {}
     for key in ("pred_logits", "pred_boxes"):
@@ -3384,7 +3703,7 @@ def phase_effnet(smi, root, phase8):
                  for t in traces]
     want_eval = dict({k: 0 for k in DP_TRAIN}, fwd=LAUNCHES_PER_FORWARD,
                      fwd_tc=LAUNCHES_PER_FORWARD, lsa=1)
-    bad_train = [c for c in hooks.train if c != DP_TRAIN]
+    bad_train = [c for c in hooks.train if c != EFFNET_TRAIN]
     bad_eval = [c for run in hooks.evals for c in run["launches"]
                 if c != want_eval]
     n_landed = sum(1 for k, v in landed.items() if k != "_bad")
@@ -3820,6 +4139,7 @@ def main() -> int:
                                                       train_batch)
     lsa_cases.append(lsa_case("real_matcher", *real, "total", lsa_inputs))
     times = phase_times(smi, lsa_cases, lsa_inputs)
+    fnorm = phase_frozen_norm(smi)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         main_run = phase_main(smi, state_dict, root)
@@ -4047,6 +4367,30 @@ def main() -> int:
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith("lsa")},
         "shapes": times["lsa"],
         "cases": lsa_cases,
+    }, {
+        "name": "frozen_norm_act",
+        "route": "cuda",
+        "source": "toist_tpu_torch/csrc/frozen_norm_act.cu",
+        # XLA fuses the norm, residual, ReLU and mask on the TPU.
+        "replaces": None,
+        # The main paths' counts: the serving warm-up's captures (a replay
+        # launches from the graph and is not counted), phase 8's training
+        # epoch and phase 12's distillation through main, forward and
+        # backward, phase 13's frozen-detector steps and eval batches.
+        "serve_capture_launches": launches["warm_fn"]["fn"],
+        "train_launches": tl["fn"], "train_bwd_launches": tl["fn_bwd"],
+        "distill_launches": dl["fn"], "distill_bwd_launches": dl["fn_bwd"],
+        **seg_counts("fn"),
+        "trunk_launches": fnorm["trunk_launches"],
+        "trunk_plain_calls": fnorm["trunk_plain_calls"],
+        "trunk_ms": fnorm["trunk_ms"],
+        "trunk_plain_ms": fnorm["trunk_plain_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,   # no one PyTorch call computes the epilogue
+        "shapes": fnorm["shapes"],
+        "train_shapes_vs_plain": fnorm["grads"],
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("frozen_norm")},
     }], "train": {k: train[k] for k in ("launches", "peak_gib", "img_s",
                                         "profile")},
         "main": {k: main_run[k] for k in ("eval_runs", "mean_ap50",

@@ -170,11 +170,13 @@ def test_kernel_sources_are_listed_and_present():
 
     from toist_tpu_torch.ops import _build
     from toist_tpu_torch.ops import flash_attention as fa
+    from toist_tpu_torch.ops import frozen_norm
     from toist_tpu_torch.ops.lsa import KERNEL_SOURCE
 
     assert fa.FWD_TC_SOURCE in fa.KERNEL_SOURCES
     on_disk = {f for f in os.listdir(_build.CSRC) if f.endswith(".cu")}
-    assert on_disk == set(fa.KERNEL_SOURCES) | {KERNEL_SOURCE}
+    assert on_disk == set(fa.KERNEL_SOURCES) | {KERNEL_SOURCE,
+                                                frozen_norm.SOURCE}
     # The two tensor-core sources share one header of building blocks.
     for src in (fa.FWD_TC_SOURCE, fa.BWD_TC_SOURCE):
         with open(os.path.join(_build.CSRC, src)) as f:

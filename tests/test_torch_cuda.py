@@ -716,3 +716,268 @@ def test_replay_matches_eager_with_a_mask_head(cuda):
     assert (graphs.captures, graphs.replays) == (2, 4)
     res = predictor.predict_batch(batches[0])
     assert len(res) == 2 and all("masks" in r for r in res)
+
+
+# The frozen-norm epilogue kernel (ops/frozen_norm.py,
+# csrc/frozen_norm_act.cu): against the same formula in f32 on the card
+# (the kernel sums in f32 in the modules' order and rounds once: within one
+# bf16 rounding), and against the plain route, the modules on the same
+# tensors: in f32 bit for bit, forward and backward; in bf16, where the
+# plain route rounds scale, shift and each partial result, within REL of
+# the output's max abs. Backward inputs are drawn 0.1 or more from the
+# ReLU's kink, so that both routes agree on its side.
+
+FN_FORMS = ["relu", "residual", "downsample"]
+
+
+def _fn_norm(c, g, dtype):
+    from toist_tpu_torch.models.resnet import FrozenBatchNorm2d
+
+    n = FrozenBatchNorm2d(c)
+    n.weight.copy_(torch.rand(c, generator=g) + 0.5)
+    n.bias.copy_(torch.randn(c, generator=g) * 0.3)
+    n.running_mean.copy_(torch.randn(c, generator=g) * 0.5)
+    n.running_var.copy_(torch.rand(c, generator=g) * 2 + 0.1)
+    return n.to("cuda", dtype)
+
+
+def _fn_scale_shift(n):
+    s = n.weight.float() / torch.sqrt(n.running_var.float() + n.eps)
+    return (s[None, :, None, None],
+            (n.bias.float() - n.running_mean.float() * s)[None, :, None,
+                                                           None])
+
+
+def _fn_case(form, dtype, h, w, mask_stride, seed=0, away=False):
+    """z, the residual or the downsample pair, the norms and the pad mask of
+    one case, channels-last on the card. With ``away`` z is drawn so that
+    the pre-activation lies 0.1-2 from 0 on either side."""
+    g = torch.Generator().manual_seed(seed)
+    c = 64 if form == "relu" else 256
+    shape = (2, c, h, w)
+    bn, bn_ds = _fn_norm(c, g, dtype), _fn_norm(c, g, dtype)
+    other = torch.randn(shape, generator=g).clamp(-1, 1)
+    s, b = (t.cpu() for t in _fn_scale_shift(bn))
+    add = 0.0
+    if form == "residual":
+        add = other.to(dtype).float()
+    elif form == "downsample":
+        sd, bd = (t.cpu() for t in _fn_scale_shift(bn_ds))
+        add = other.to(dtype).float() * sd + bd
+    if away:
+        sign = torch.where(torch.rand(shape, generator=g) < 0.5, -1.0, 1.0)
+        pre = sign * (0.1 + 1.9 * torch.rand(shape, generator=g))
+        z = (pre - b - add) / s
+    else:
+        z = torch.randn(shape, generator=g) * 2
+    cl = torch.channels_last
+    z = z.to("cuda", dtype).contiguous(memory_format=cl)
+    other = other.to("cuda", dtype).contiguous(memory_format=cl)
+    mask = None
+    if mask_stride:
+        mask = torch.zeros(2, h * mask_stride, w * mask_stride,
+                           dtype=torch.bool)
+        mask[1, (h * mask_stride * 2) // 3:] = True
+        mask[1, :, (w * mask_stride) // 2:] = True
+        mask[0, :, w * mask_stride - 1] = True
+        mask = mask.cuda()
+    return z, other, bn, bn_ds, mask
+
+
+def _fn_args(form, other, bn_ds):
+    if form == "residual":
+        return {"residual": other}
+    if form == "downsample":
+        return {"downsample": (other, bn_ds)}
+    return {}
+
+
+def _fn_f32(z, form, other, bn, bn_ds, mask):
+    """The formula in f32: relu(z s + b (+ r | + z_ds s_ds + b_ds)) keep."""
+    s, b = _fn_scale_shift(bn)
+    v = z.float() * s + b
+    if form == "residual":
+        v = v + other.float()
+    elif form == "downsample":
+        sd, bd = _fn_scale_shift(bn_ds)
+        v = v + (other.float() * sd + bd)
+    v = torch.relu(v)
+    if mask is not None:
+        from toist_tpu_torch.ops.frozen_norm import downsample_mask
+
+        keep = ~downsample_mask(mask, v.shape[2], v.shape[3])
+        v = v * keep[:, None].float()
+    return v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", FN_FORMS)
+@pytest.mark.parametrize("mask_stride", [0, 4, 32])
+@pytest.mark.parametrize("h,w", [(13, 11), (24, 40)])
+def test_frozen_norm_kernel_matches_f32_and_plain(cuda, dtype, form,
+                                                  mask_stride, h, w):
+    from toist_tpu_torch.ops.frozen_norm import frozen_norm, frozen_norm_plain
+
+    z, other, bn, bn_ds, mask = _fn_case(form, dtype, h, w, mask_stride)
+    kw = _fn_args(form, other, bn_ds)
+    before = (frozen_norm.launches, frozen_norm.plain)
+    with torch.no_grad():
+        y = frozen_norm(z, bn, pad_mask=mask, **kw)
+        torch.cuda.synchronize()
+        assert (frozen_norm.launches, frozen_norm.plain) == (
+            before[0] + 1, before[1])
+        assert y.dtype == dtype and y.is_contiguous(
+            memory_format=torch.channels_last)
+        want = _fn_f32(z, form, other, bn, bn_ds, mask)
+        rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+        torch.testing.assert_close(y.float(), want, rtol=rtol, atol=0.0)
+        plain = frozen_norm_plain(z, bn, kw.get("residual"),
+                                  kw.get("downsample"), mask)
+        if dtype == torch.float32:
+            assert torch.equal(y, plain)
+        else:
+            _close(y, plain, REL[dtype])
+    if mask is not None:
+        from toist_tpu_torch.ops.frozen_norm import downsample_mask
+
+        pad = downsample_mask(mask, h, w)
+        assert (y.permute(0, 2, 3, 1)[pad] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", FN_FORMS)
+@pytest.mark.parametrize("mask_stride", [0, 4])
+def test_frozen_norm_backward_matches_plain(cuda, dtype, form, mask_stride):
+    from toist_tpu_torch.ops.frozen_norm import frozen_norm, frozen_norm_plain
+
+    z, other, bn, bn_ds, mask = _fn_case(form, dtype, 13, 11, mask_stride,
+                                         seed=1, away=True)
+    gw = torch.randn(z.shape, generator=torch.Generator().manual_seed(2))
+    gw = gw.to("cuda", dtype)
+
+    def run(fn):
+        zz = z.detach().requires_grad_()
+        oo = other.detach().requires_grad_()
+        kw = _fn_args(form, oo, bn_ds)
+        y = fn(zz, bn, kw.get("residual"), kw.get("downsample"), mask)
+        dz, do = torch.autograd.grad(y, (zz, oo), gw, allow_unused=True)
+        return y.detach(), dz, do
+
+    before = frozen_norm.bwd_launches
+    y, dz, do = run(lambda *a: frozen_norm(a[0], a[1], residual=a[2],
+                                           downsample=a[3], pad_mask=a[4]))
+    torch.cuda.synchronize()
+    assert frozen_norm.bwd_launches == before + 1
+    py, pdz, pdo = run(frozen_norm_plain)
+    assert torch.equal(y > 0, py > 0)        # the kink is not in play
+    f32 = dtype == torch.float32
+    rtol = 0.0 if f32 else 2.0 ** -7
+    torch.testing.assert_close(dz, pdz, rtol=rtol, atol=0)
+    # Against the formula in f32 from the kernel's own output.
+    s, _ = _fn_scale_shift(bn)
+    live = (y > 0).float()
+    torch.testing.assert_close(dz.float(), gw.float() * live * s,
+                               rtol=0.0 if f32 else 2.0 ** -8, atol=0)
+    if form == "relu":
+        assert do is None and pdo is None
+    elif form == "residual":
+        assert torch.equal(do, pdo)            # g [y > 0]: exact
+    else:
+        torch.testing.assert_close(do, pdo, rtol=rtol, atol=0)
+        sd, _ = _fn_scale_shift(bn_ds)
+        torch.testing.assert_close(do.float(), gw.float() * live * sd,
+                                   rtol=0.0 if f32 else 2.0 ** -8, atol=0)
+
+
+def test_frozen_norm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from toist_tpu_torch.ops.frozen_norm import frozen_norm
+
+    z, other, bn, bn_ds, mask = _fn_case("residual", torch.bfloat16, 8, 8, 4)
+    with pytest.raises(ValueError, match="channels-last"):
+        frozen_norm(z.contiguous(), bn)
+    with pytest.raises(ValueError, match="channels-last"):
+        frozen_norm(z, bn, residual=other.contiguous())
+    with pytest.raises(TypeError):
+        frozen_norm(z.half(), bn)
+    with pytest.raises(ValueError, match="pad_mask"):
+        frozen_norm(z, bn, pad_mask=mask.cpu())
+    with pytest.raises(ValueError, match="buffers"):
+        frozen_norm(z, bn.cpu())
+
+
+def test_resnet101_forward_takes_the_kernel_at_every_norm(cuda,
+                                                          monkeypatch):
+    """One bf16 ResNet-101 forward: 100 kernel launches (the stem and 33
+    blocks x 3) and no plain call; its backward 100 backward launches. In
+    f32 the features equal the plain route's bit for bit."""
+    import toist_tpu_torch.models.resnet as resnet_mod
+    from toist_tpu_torch.ops.frozen_norm import frozen_norm, frozen_norm_plain
+
+    torch.manual_seed(0)
+    cl = torch.channels_last
+    net = resnet_mod.Backbone("resnet101").to(
+        "cuda", torch.bfloat16).to(memory_format=cl)
+    x32 = torch.randn(2, 3, 160, 224, device="cuda")
+    mask = torch.zeros(2, 160, 224, dtype=torch.bool, device="cuda")
+    mask[1, 96:] = True
+    x = x32.to(torch.bfloat16).contiguous(memory_format=cl)
+    x.requires_grad_()
+    before = (frozen_norm.launches, frozen_norm.plain,
+              frozen_norm.bwd_launches)
+    feats = net(x, mask)
+    assert (frozen_norm.launches - before[0],
+            frozen_norm.plain - before[1]) == (100, 0)
+    sum(f.float().sum() for f in feats.values()).backward()
+    torch.cuda.synchronize()
+    assert frozen_norm.bwd_launches - before[2] == 100
+
+    net = net.float()
+    x = x32.contiguous(memory_format=cl)
+    with torch.no_grad():
+        got = net(x, mask)
+        monkeypatch.setattr(
+            resnet_mod, "frozen_norm",
+            lambda z, norm, residual=None, downsample=None, pad_mask=None:
+            frozen_norm_plain(z, norm, residual, downsample, pad_mask))
+        want = net(x, mask)
+    for k, f in got.items():
+        assert torch.isfinite(f).all()
+        assert torch.equal(f, want[k]), k
+
+
+def test_replay_matches_eager_after_new_norm_buffers(cuda, flagship):
+    """The kernel reads the norms' buffers at every launch, so a replay
+    after an in-place load_state_dict that changes every norm's buffers
+    equals the eager forward with the new buffers."""
+    from toist_tpu_torch.models.resnet import FrozenBatchNorm2d
+    from toist_tpu_torch.predict import UnimodalGraphs
+
+    model = flagship.model
+    graphs = UnimodalGraphs(model)
+    rng = np.random.default_rng(3)
+    batch = _serving_batch(flagship, rng, 8, "landscape")
+    _, before = _assert_replay_is_eager(model, graphs, batch)
+    norms = [n for n, m in model.named_modules()
+             if isinstance(m, FrozenBatchNorm2d)]
+    assert len(norms) == 104
+    old = {k: v.clone() for k, v in model.state_dict().items()}
+    new = dict(old)
+    g = torch.Generator().manual_seed(4)
+    for n in norms:
+        for b, lo, hi in (("weight", 0.7, 1.3), ("bias", -0.1, 0.1),
+                          ("running_mean", -0.1, 0.1),
+                          ("running_var", 0.8, 1.5)):
+            k = f"{n}.{b}"
+            u = torch.rand(old[k].shape, generator=g) * (hi - lo) + lo
+            u = u.to(old[k].device, old[k].dtype)
+            new[k] = old[k] * u if b in ("weight", "running_var") \
+                else old[k] + u
+    try:
+        model.load_state_dict(new)       # in place: the graph sees it
+        _, after = _assert_replay_is_eager(model, graphs, batch)
+        assert not torch.equal(after["scores"], before["scores"])
+        assert (graphs.captures, graphs.replays) == (1, 1)
+    finally:
+        model.load_state_dict(old)
+    _, again = _assert_replay_is_eager(model, graphs, batch)
+    assert torch.equal(again["scores"], before["scores"])

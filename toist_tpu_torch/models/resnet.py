@@ -11,8 +11,13 @@ The JAX stem computes its 7x7 stride-2 conv through a 2x2 space-to-depth
 rewrite, a TPU layout device with the same arithmetic; here it is the plain
 conv. As in the JAX package (and unlike torchvision), the padded canvas
 region is zeroed after the stem + max-pool and after every stage, which makes
-the features invariant to how far a canvas is padded. With ``remat`` each
-bottleneck's activations are recomputed in the backward
+the features invariant to how far a canvas is padded. In the frozen-norm
+trunk each convolution's epilogue (norm, residual or the downsample
+convolution's norm, ReLU, and on a stage's last block the pad mask) is one
+``ops/frozen_norm.frozen_norm`` call: the fused kernel on the card, the
+modules' own math on the CPU; the GroupNorm trunk runs the modules' math
+(``frozen_norm_plain``) everywhere. With ``remat`` each bottleneck's
+activations are recomputed in the backward
 (``toist_tpu/models/resnet.py:170``). ``Backbone`` also takes the
 ``timm_[tf_]efficientnet_b0..b5`` names (``models/efficientnet.py``), as
 ``toist_tpu/models/resnet.py:188-205`` dispatches them.
@@ -26,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from toist_tpu_torch.models.layers import remat, remat_active
+from toist_tpu_torch.ops.frozen_norm import (downsample_mask, frozen_norm,
+                                             frozen_norm_plain)
 
 STAGE_SIZES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
                "resnet18-test": (1, 1, 1, 1)}
@@ -84,24 +91,32 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(_conv(cin, width * 4, 1, stride),
                                             _norm(norm, width * 4))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+    def forward(self, x: torch.Tensor,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``pad_mask`` (the image's, True = pad), given to a stage's last
+        block, zeroes the output's padded region."""
+        # Each convolution's epilogue is one pass: frozen_norm routes by
+        # device (the kernel on the card); other norms take the modules.
+        epilogue = (frozen_norm if isinstance(self.bn1, FrozenBatchNorm2d)
+                    else frozen_norm_plain)
+        out = epilogue(self.conv1(x), self.bn1)
+        out = epilogue(self.conv2(out), self.bn2)
+        if self.downsample is None:
+            return epilogue(self.conv3(out), self.bn3, residual=x,
+                            pad_mask=pad_mask)
+        conv_ds, norm_ds = self.downsample
+        return epilogue(self.conv3(out), self.bn3,
+                        downsample=(conv_ds(x), norm_ds), pad_mask=pad_mask)
 
 
-def downsample_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Image pad mask [B, H, W] bool -> feature-level mask [B, h, w] by
-    nearest sampling at cell top-left corners; a strided slice on exact-
-    stride canvases (all /32 buckets)."""
-    B, H, W = mask.shape
-    if H % h == 0 and W % w == 0:
-        return mask[:, ::H // h, ::W // w]
-    ys = (torch.arange(h, device=mask.device) * (H / h)).long()
-    xs = (torch.arange(w, device=mask.device) * (W / w)).long()
-    return mask[:, ys][:, :, xs]
+def mask_features(feat: torch.Tensor,
+                  pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Zero the padded canvas region of ``feat`` [B, C, h, w] given the
+    image pad mask [B, H, W] (True = pad); None leaves ``feat`` as it is."""
+    if pad_mask is None:
+        return feat
+    keep = ~downsample_mask(pad_mask, feat.shape[2], feat.shape[3])
+    return feat * keep[:, None].to(feat.dtype)
 
 
 class ResNet(nn.Module):
@@ -133,20 +148,17 @@ class ResNet(nn.Module):
                 pad_mask: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """x [B, 3, H, W]; pad_mask [B, H, W] bool (True = pad)."""
-        def apply_mask(feat):
-            if pad_mask is None:
-                return feat
-            keep = ~downsample_mask(pad_mask, feat.shape[2], feat.shape[3])
-            return feat * keep[:, None].to(feat.dtype)
-
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = apply_mask(F.max_pool2d(x, 3, stride=2, padding=1))
+        x = self.conv1(x)
+        x = (frozen_norm if isinstance(self.bn1, FrozenBatchNorm2d)
+             else frozen_norm_plain)(x, self.bn1)
+        x = mask_features(F.max_pool2d(x, 3, stride=2, padding=1), pad_mask)
         feats = {}
         for si in range(self.num_stages):
-            for block in getattr(self, f"layer{si + 1}"):
-                x = (remat(block, None, x) if remat_active(self, self.remat)
-                     else block(x))
-            x = apply_mask(x)
+            blocks = getattr(self, f"layer{si + 1}")
+            for bi, block in enumerate(blocks):
+                mask = pad_mask if bi == len(blocks) - 1 else None
+                x = (remat(block, None, x, mask)
+                     if remat_active(self, self.remat) else block(x, mask))
             feats[f"layer{si + 1}"] = x
         return feats
 
