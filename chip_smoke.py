@@ -769,20 +769,20 @@ def phase_slice(smi, has_pil):
 def phase_slice_kernel_vs_plain(state_dict, batch):
     import torch
 
+    from toist_tpu_torch import infer
     from toist_tpu_torch.config import Config
     from toist_tpu_torch.models.layers import set_fused_attention
     from toist_tpu_torch.models.toist import TOIST
-    from toist_tpu_torch.train.step import eval_forward
 
     cfg = Config.from_sources(None, {"model": {"compute_dtype": "float32"}})
     model = TOIST.from_state_dict(state_dict, cfg.model, device="cuda")
     reset_counts()
-    out_k, _ = eval_forward(model, batch)
+    out_k, _ = infer.forward(model, batch)
     with_kernels = read_counts()
     set_fused_attention(model, False)
     reset_counts()
     with plain_trunk():
-        out_p, _ = eval_forward(model, batch)
+        out_p, _ = infer.forward(model, batch)
     without = read_counts()
     want = dict({k: 0 for k in without}, fwd=LAUNCHES_PER_FORWARD,
                 lsa=with_kernels["lsa"], **fn_counts(FN_FORWARD))
@@ -1258,7 +1258,8 @@ def phase_train_kernel_vs_plain(state_dict, batch):
         hungarian_match_levels, match_costs
     from toist_tpu_torch.train import criterion as crit
     from toist_tpu_torch.train.optim import freeze_parameters, label_params
-    from toist_tpu_torch.train.step import TRAIN_KEYS, batch_to_device
+    from toist_tpu_torch.infer import batch_to_device
+    from toist_tpu_torch.train.step import TRAIN_KEYS
 
     cfg = Config.from_sources(None, {"model": {
         "compute_dtype": "float32", "dropout": 0.0, "resizer_dropout": 0.0}})
@@ -1770,7 +1771,7 @@ class _Hooks:
                 step = make(*args, **kwargs)
 
                 def eval_step(*args):
-                    batch = args[-1]
+                    batch = args[0]
                     run = self.evals[-1]
                     run["calls"].append(time.perf_counter())
                     before = read_counts()
@@ -1865,7 +1866,6 @@ class _Hooks:
         patch(engine, "evaluate", timed_evaluate)
         patch(ckpt, "restore", kept_restore)
         if distill or seg:
-            patch(pmain, "make_cluster_eval_step", counted_eval)
             for name in ("teacher_update_and_snap", "student_cluster"):
                 patch(cl, name, no_sync(name))
         if distill:
@@ -2899,8 +2899,8 @@ def phase_seg_kernel_vs_plain(cfg, weights):
     from toist_tpu_torch.models.toist import TOIST
     from toist_tpu_torch.ops.lsa import solve_lsa_batch
     from toist_tpu_torch.train import criterion as crit
-    from toist_tpu_torch.train.step import (EVAL_KEYS, INPUT_KEYS,
-                                            TARGET_KEYS, batch_to_device)
+    from toist_tpu_torch.infer import EVAL_KEYS, INPUT_KEYS, batch_to_device
+    from toist_tpu_torch.train.step import TARGET_KEYS
 
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, compute_dtype="float32"))
@@ -3231,8 +3231,7 @@ def rank_worker(spec_path):
 
     for name in ("make_train_step", "make_distillation_train_step"):
         setattr(pmain, name, counted_train(getattr(pmain, name)))
-    for name in ("make_eval_step", "make_cluster_eval_step"):
-        setattr(pmain, name, counted_eval(getattr(pmain, name)))
+    pmain.make_eval_step = counted_eval(pmain.make_eval_step)
     dp.reduce_gradients = timed_reduce
     dist.destroy = gathering_destroy
     dp.replicate = timed("replicate", dp.replicate)
@@ -3252,11 +3251,11 @@ def _tp_f32_forward(spec):
     the logits and boxes to spec["tp_logits"]."""
     import torch
 
+    from toist_tpu_torch import infer
     from toist_tpu_torch import main as pmain
     from toist_tpu_torch.models.toist import TOIST
     from toist_tpu_torch.parallel import tp
     from toist_tpu_torch.train import checkpoint as ckpt
-    from toist_tpu_torch.train.step import eval_forward
     from toist_tpu_torch.utils import dist
 
     torch.distributed.barrier()         # rank 0's checkpoint is written
@@ -3266,7 +3265,7 @@ def _tp_f32_forward(spec):
     model = TOIST.from_state_dict(ckpt.load_params(spec["checkpoint"]),
                                   cfg.model)
     tp.shard_model(model, (dist.model_index(), dist.model_count()))
-    out, _ = eval_forward(model, torch.load(spec["tp_batch"],
+    out, _ = infer.forward(model, torch.load(spec["tp_batch"],
                                             weights_only=False))
     if dist.process_index() == 0:
         torch.save({k: out[k].cpu() for k in ("pred_logits", "pred_boxes")},
@@ -3567,15 +3566,15 @@ def _f32_kernel_vs_plain(label, model, batch):
     attention: pred_logits and pred_boxes within SLICE_TOL."""
     import torch
 
+    from toist_tpu_torch import infer
     from toist_tpu_torch.models.layers import set_fused_attention
-    from toist_tpu_torch.train.step import eval_forward
 
     reset_counts()
-    out_k, _ = eval_forward(model, batch)
+    out_k, _ = infer.forward(model, batch)
     launches = read_counts()
     set_fused_attention(model, False)
     with plain_trunk():
-        out_p, _ = eval_forward(model, batch)
+        out_p, _ = infer.forward(model, batch)
     set_fused_attention(model, True)
     errs = {}
     for key in ("pred_logits", "pred_boxes"):
@@ -3805,8 +3804,9 @@ def phase_remat(smi, state_dict, root, phase8):
     from toist_tpu_torch.parallel import data as dp
     from toist_tpu_torch.train.criterion import build_weight_dict
     from toist_tpu_torch.train.state import init_train_state
+    from toist_tpu_torch.infer import batch_to_device
     from toist_tpu_torch.train.step import (TRAIN_KEYS, accumulate_gradients,
-                                            batch_to_device, make_train_step)
+                                            make_train_step)
 
     t_phase = time.perf_counter()
     cfg = _fixture_config(os.path.join(root, "remat_data"))
@@ -3934,13 +3934,13 @@ def phase_tp(smi, root):
     f32 batch against the TP ranks' f32 forward of the same weights."""
     import torch
 
+    from toist_tpu_torch import infer
     from toist_tpu_torch import main as pmain
     from toist_tpu_torch.data.batcher import BatchIterator
     from toist_tpu_torch.data.captions import build_tokenizer
     from toist_tpu_torch.data.cocotasks import build_task_dataset
     from toist_tpu_torch.models.toist import TOIST
     from toist_tpu_torch.train import checkpoint as ckpt
-    from toist_tpu_torch.train.step import eval_forward
 
     t_phase = time.perf_counter()
     data = os.path.join(root, "dp_small")           # phase 14's fixture
@@ -3968,7 +3968,7 @@ def phase_tp(smi, root):
                             "run.mesh_shape=[-1]", 'run.mesh_axes=["data"]'])
     model = TOIST.from_state_dict(ckpt.load_params(
         os.path.join(out, "checkpoint")), f32.model)
-    want, _ = eval_forward(model, f32_batch)
+    want, _ = infer.forward(model, f32_batch)
     errs = {k: (got[k].cuda() - want[k]).abs().max().item()
             for k in ("pred_logits", "pred_boxes")}
     del model
@@ -4030,8 +4030,7 @@ def parity_worker(argv):
 
     for kind, names in (("train", ("make_train_step",
                                    "make_distillation_train_step")),
-                        ("eval", ("make_eval_step",
-                                  "make_cluster_eval_step"))):
+                        ("eval", ("make_eval_step",))):
         for name in names:
             setattr(pmain, name, counted(kind, getattr(pmain, name)))
     args = pmain._parser().parse_args(argv)

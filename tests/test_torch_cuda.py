@@ -541,8 +541,8 @@ def test_fused_attention_off_routes_around_the_kernels(cuda, tmp_path,
     decoder cross-attentions per forward)."""
     import dataclasses
 
+    from toist_tpu_torch import infer
     from toist_tpu_torch.models.toist import TOIST
-    from toist_tpu_torch.train.step import eval_forward
 
     cfg, sets, spec, sd = _tiny_eval_setup(tmp_path, "bfloat16")
     mcfg = dataclasses.replace(cfg.model, fused_attention=fused)
@@ -551,7 +551,7 @@ def test_fused_attention_off_routes_around_the_kernels(cuda, tmp_path,
     batch = next(BatchIterator([sets[1]], spec, batch_size=2,
                                shuffle=False).epoch(0))
     before = flash_attention.launches
-    out, _ = eval_forward(model, batch)
+    out, _ = infer.forward(model, batch)
     torch.cuda.synchronize()
     assert torch.isfinite(out["pred_logits"]).all()
     assert flash_attention.launches - before == (0 if fused == "off" else 4)
@@ -608,10 +608,12 @@ def _serving_batch(predictor, rng, n, orient="landscape", rows=None,
 def _assert_replay_is_eager(model, graphs, batch):
     """The forward with the encoders replayed equals the eager one bit for
     bit: every output and the postprocessed detections. Returns them."""
-    from toist_tpu_torch.train.step import eval_forward
+    from toist_tpu_torch import infer
 
-    want, want_post = eval_forward(model, batch)
-    got, got_post = eval_forward(model, batch, unimodal=graphs)
+    want, x = infer.forward(model, batch)
+    want_post = infer.postprocess(want, x)
+    got, x = infer.forward(model, batch, unimodal=graphs)
+    got_post = infer.postprocess(got, x)
     for k, w in want.items():
         assert torch.equal(got[k], w), k
     for k, w in want_post.items():

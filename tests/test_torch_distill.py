@@ -38,10 +38,10 @@ from toist_tpu_torch import config as pconfig
 from toist_tpu_torch.models.toist import TOIST
 from toist_tpu_torch.train import criterion as pcrit
 from toist_tpu_torch.train.distill import (distillation_losses,
-                                           make_cluster_eval_step,
                                            make_distillation_train_step)
 from toist_tpu_torch.train.state import init_train_state, model_masters
-from toist_tpu_torch.train.step import accumulate_gradients, forward_losses
+from toist_tpu_torch.train.step import (accumulate_gradients, forward_losses,
+                                        make_eval_step)
 from toist_tpu_torch.utils.convert import (cluster_bank_from_jax,
                                            jax_params_to_state_dict)
 
@@ -85,6 +85,13 @@ ARGS = ("noun_logits", "sth_logits", "noun_boxes", "sth_boxes", "t2q_noun",
         "t2q_sth", "box_valid", "sample_valid")
 
 
+def _softkd_one_level(*args):
+    """The port's softkd of one decoder level: ``loss_softkd_levels`` with
+    L = 1, as the distillation step runs it without aux levels."""
+    return pcrit.loss_softkd_levels(*(a[None] for a in args[:6]),
+                                    *args[6:])[0]
+
+
 def _record_solves(monkeypatch):
     """The port's re-pairing problems and assignments, as solved."""
     solves, solve = [], pcrit.solve_lsa_batch
@@ -116,7 +123,9 @@ def _assert_equal_total_cost(solves):
 def test_softkd_matches_jax(fn, monkeypatch):
     s = _streams(0, levels=3 if fn == "loss_softkd_levels" else None)
     solves = _record_solves(monkeypatch)
-    got = getattr(pcrit, fn)(*(_t(s[k]) for k in ARGS))
+    port = (_softkd_one_level if fn == "loss_softkd"
+            else pcrit.loss_softkd_levels)
+    got = port(*(_t(s[k]) for k in ARGS))
     want = jax.jit(getattr(jcrit, fn))(*(jnp.asarray(s[k]) for k in ARGS))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
     [(cost, n, _)] = solves                    # one solve, all levels
@@ -127,11 +136,12 @@ def test_softkd_matches_jax(fn, monkeypatch):
 
 
 def test_softkd_on_shared_matchings_is_the_levels_loss():
-    """``loss_softkd_levels`` equals ``loss_softkd`` level by level."""
+    """``loss_softkd_levels``'s one solve over the levels equals each
+    level's on its own."""
     s = _streams(1, levels=2)
     lv = pcrit.loss_softkd_levels(*(_t(s[k]) for k in ARGS))
     for i in range(2):
-        one = pcrit.loss_softkd(*(_t(s[k][i]) for k in ARGS[:6]),
+        one = _softkd_one_level(*(_t(s[k][i]) for k in ARGS[:6]),
                                 _t(s["box_valid"]), _t(s["sample_valid"]))
         np.testing.assert_allclose(float(one), float(lv[i]), rtol=RTOL)
 
@@ -140,13 +150,13 @@ def test_softkd_properties():
     """Zero for identical streams; its gradient reaches the student only."""
     s = _streams(2)
     x = {k: _t(v) for k, v in s.items()}
-    same = pcrit.loss_softkd(x["noun_logits"], x["noun_logits"],
+    same = _softkd_one_level(x["noun_logits"], x["noun_logits"],
                              x["noun_boxes"], x["noun_boxes"], x["t2q_noun"],
                              x["t2q_noun"], x["box_valid"], x["sample_valid"])
     assert abs(float(same)) < 1e-6
     ln = x["noun_logits"].clone().requires_grad_()
     ls = x["sth_logits"].clone().requires_grad_()
-    loss = pcrit.loss_softkd(ln, ls, *(x[k] for k in ARGS[2:]))
+    loss = _softkd_one_level(ln, ls, *(x[k] for k in ARGS[2:]))
     assert float(loss.detach()) > 1e-4
     loss.backward()
     assert ln.grad is None or float(ln.grad.abs().max()) == 0.0
@@ -511,7 +521,7 @@ def test_cluster_eval_step_matches_jax(dual, eval_losses):
     model = TOIST.from_state_dict(sd, pcfg.model, device="cpu")
     bank = cluster_bank_from_jax(_bank())
     centers = bank.cluster_centers.clone()
-    got = make_cluster_eval_step(model, pcfg, wd)(bank, batch)
+    got = make_eval_step(model, pcfg, wd)(batch, bank)
     assert torch.equal(bank.cluster_centers, centers)     # read only
     np.testing.assert_allclose(got["post"]["scores"].numpy(),
                                np.asarray(want["post"]["scores"]),

@@ -130,17 +130,17 @@ def test_main_eval_loads_the_npz_and_its_bank(converted, tmp_path,
     """``main --eval --load ckpt.npz`` with ``loss.cluster``: the model
     takes the EMA weights and the cluster eval reads the JAX run's bank."""
     root, *_, npz = converted
-    banks, make = [], pmain.make_cluster_eval_step
+    banks, make = [], pmain.make_eval_step
 
     def recording(*args, **kwargs):
         step = make(*args, **kwargs)
 
-        def eval_step(bank, batch):
+        def eval_step(batch, bank=None):
             banks.append(bank)
-            return step(bank, batch)
+            return step(batch, bank)
         return eval_step
 
-    monkeypatch.setattr(pmain, "make_cluster_eval_step", recording)
+    monkeypatch.setattr(pmain, "make_eval_step", recording)
     over = _over(root)
     over["run"] = {"load": npz, "eval_only": True,
                    "output_dir": str(tmp_path / "out")}

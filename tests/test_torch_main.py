@@ -84,7 +84,8 @@ def _warm_start(path, cfg):
 
 
 def _record_detections(monkeypatch):
-    """Each main's eval detections, batch by batch: a list per main."""
+    """Each main's eval detections, batch by batch: a list per main. Each
+    batch's "bank" says whether the step was given the cluster bank."""
     import toist_tpu_torch.main as pmain
 
     runs, make = [], pmain.make_eval_step
@@ -93,10 +94,11 @@ def _record_detections(monkeypatch):
         step, dets = make(model, cfg, weight_dict), []
         runs.append(dets)
 
-        def eval_step(batch):
-            res = step(batch)
+        def eval_step(batch, *bank):
+            res = step(batch, *bank)
             dets.append({k: res["post"][k].clone() for k in ("scores",
                                                               "boxes")})
+            dets[-1]["bank"] = bool(bank) and bank[0] is not None
             return res
         return eval_step
 
@@ -336,7 +338,8 @@ def test_distillation_main_trains_and_resumes(tmp_path, monkeypatch):
     assert len(steps[-1]["bank_update_count"]) == 14
     assert sum(steps[-1]["bank_update_count"]) == 8     # 8 images x 1 noun
     [ev] = [r for r in log if r["kind"] == "eval"]
-    assert runs == []          # the cluster eval step, not the plain one
+    # The cluster eval: every eval batch went to the step with the bank.
+    assert runs and all(d["bank"] for d in runs[0])
 
     # The saved state restores bit for bit; --eval --resume gives the
     # in-run eval's stats.

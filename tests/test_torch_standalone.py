@@ -84,12 +84,31 @@ def _imports(path=os.path.join(REPO, "chip_smoke.py")):
     return found
 
 
-@pytest.mark.parametrize("what", ["package", "chip_smoke"])
+# What serving never runs: the training stack below the train steps.
+TRAINING = ("toist_tpu_torch.train.step", "toist_tpu_torch.train.criterion",
+            "toist_tpu_torch.train.optim", "toist_tpu_torch.train.state",
+            "toist_tpu_torch.train.distill", "toist_tpu_torch.parallel.data")
+
+
+@pytest.mark.parametrize("what", ["package", "chip_smoke", "predict"])
 def test_port_imports_nothing_of_jax(what):
     if what == "chip_smoke":
         found = _imports()
         assert "toist_tpu_torch.ops.flash_attention" in found
         assert not [m for m in found if _forbidden(m)]
+        return
+    if what == "predict":
+        # The serving API stands below the training stack, too.
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, toist_tpu_torch.predict\n"
+             "print(' '.join(sorted(sys.modules)))"], cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        loaded = set(proc.stdout.split())
+        assert not loaded & set(TRAINING), sorted(loaded & set(TRAINING))
+        assert not [m for m in loaded if _forbidden(m)]
+        assert "toist_tpu_torch.infer" in loaded
         return
     code = (
         "import importlib, pkgutil, sys\n"

@@ -164,19 +164,29 @@ def test_serving_spans_nest_inside_predict(tiny, tmp_path):
     assert {s[0] for s in spans} == {"toist.predict", *SERVE_SPANS}
 
 
-@pytest.mark.parametrize("losses", [True, False])
+@pytest.mark.parametrize("losses", [True, False, "cluster"])
 def test_eval_step_spans(tiny, tmp_path, losses):
     """``make_eval_step``'s step: the copy in, the forward, the criterion
     when it computes the eval losses, the postprocess, inside
-    ``toist.eval_step``."""
+    ``toist.eval_step``. "cluster" is the cluster eval, with its losses:
+    the bank's snap between the encode and the decode."""
     cfg, sd = tiny
+    cluster = losses == "cluster"
     cfg = pconfig.Config.from_sources(None, {
         "model": dataclasses.asdict(cfg.model),
-        "run": {"compute_eval_losses": losses}})
+        "run": {"compute_eval_losses": bool(losses)},
+        "loss": {"cluster": cluster, "cluster_memory_size": 16}})
     step = make_eval_step(TOIST.from_state_dict(sd, cfg.model, "cpu"), cfg,
                           build_weight_dict(cfg.loss, False, 2))
-    spans = _spans(lambda: step(_batch(4)), tmp_path)
-    want = ["toist.eval_step", "toist.h2d", "toist.encode", "toist.decode"]
+    if cluster:
+        bank = init_bank(14, 16, cfg.loss.cluster_num, 32,
+                         torch.Generator().manual_seed(0))
+        spans = _spans(lambda: step(_pair(4)["sth"], bank), tmp_path)
+    else:
+        spans = _spans(lambda: step(_batch(4)), tmp_path)
+    want = ["toist.eval_step", "toist.h2d", "toist.encode"]
+    want += ["toist.bank"] if cluster else []
+    want += ["toist.decode"]
     want += ["toist.criterion"] if losses else []
     assert [s[0] for s in spans] == want + ["toist.postprocess"]
     assert all(_inside(s, spans[0]) for s in spans[1:])

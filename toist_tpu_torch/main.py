@@ -71,8 +71,7 @@ from toist_tpu_torch.train import checkpoint as ckpt
 from toist_tpu_torch.train import engine
 from toist_tpu_torch.train.cluster import init_bank
 from toist_tpu_torch.train.criterion import build_weight_dict
-from toist_tpu_torch.train.distill import (make_cluster_eval_step,
-                                           make_distillation_train_step)
+from toist_tpu_torch.train.distill import make_distillation_train_step
 from toist_tpu_torch.train.state import init_train_state, load_masters
 from toist_tpu_torch.train.step import make_eval_step, make_train_step
 from toist_tpu_torch.utils import dist
@@ -253,13 +252,13 @@ def _main(cfg: Config, device: torch.device) -> Optional[float]:
     eval_model = state.model
     if cfg.optim.ema and state.ema is not None:
         eval_model = copy.deepcopy(state.model).eval()
-    if cfg.loss.cluster:
-        cluster_eval = make_cluster_eval_step(eval_model, cfg, weight_dict)
+    step = make_eval_step(eval_model, cfg, weight_dict)
 
-        def eval_step(batch):
-            return cluster_eval(state.cluster_bank, batch)
-    else:
-        eval_step = make_eval_step(eval_model, cfg, weight_dict)
+    def eval_step(batch):
+        # The cluster eval reads the bank as the last step left it.
+        if cfg.loss.cluster:
+            return step(batch, state.cluster_bank)
+        return step(batch)
 
     def run_eval(epoch: int = 0) -> float:
         if eval_model is not state.model:

@@ -30,13 +30,13 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from toist_tpu_torch import infer
 from toist_tpu_torch.config import Config
 from toist_tpu_torch.data.batcher import BucketSpec, collate, default_buckets
 from toist_tpu_torch.data.tokenizer import RobertaBPE
 from toist_tpu_torch.data.captions import build_tokenizer, task_caption
 from toist_tpu_torch.models.postprocess import postprocess_masks_device
 from toist_tpu_torch.models.toist import TOIST
-from toist_tpu_torch.train.step import eval_forward
 from toist_tpu_torch.utils.tracing import span, spanned
 
 
@@ -191,7 +191,8 @@ class Predictor:
         """Run one collated batch; one result per valid row, boxes sorted by
         score (descending) and filtered by ``score_threshold``; with a
         mask head each also holds "masks", the kept boxes' RLEs."""
-        out, post = eval_forward(self.model, batch, unimodal=self.graphs)
+        out, x = infer.forward(self.model, batch, unimodal=self.graphs)
+        post = infer.postprocess(out, x)
         masks = None
         if "pred_masks" in out:
             masks = postprocess_masks_device(

@@ -354,26 +354,6 @@ def _softkd_per_image(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
     return (tp_kl.sum(-1) + fp_kl.sum(-1)) / Q
 
 
-def _num_samples(sample_valid: torch.Tensor,
-                 num_samples: Optional[torch.Tensor]) -> torch.Tensor:
-    return (sample_valid.sum().clamp(min=1) if num_samples is None
-            else num_samples)
-
-
-def loss_softkd(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
-                noun_boxes: torch.Tensor, sth_boxes: torch.Tensor,
-                t2q_noun: torch.Tensor, t2q_sth: torch.Tensor,
-                box_valid: torch.Tensor, sample_valid: torch.Tensor,
-                num_samples: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Softkd of one decoder level: the mean over valid images
-    (``num_samples`` of them, by default the batch's)."""
-    per_image = _softkd_per_image(noun_logits, sth_logits, noun_boxes,
-                                  sth_boxes, t2q_noun, t2q_sth, box_valid,
-                                  sample_valid)
-    return (per_image * sample_valid).sum() / _num_samples(sample_valid,
-                                                            num_samples)
-
-
 def loss_softkd_levels(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
                        noun_boxes: torch.Tensor, sth_boxes: torch.Tensor,
                        t2q_noun: torch.Tensor, t2q_sth: torch.Tensor,
@@ -381,8 +361,10 @@ def loss_softkd_levels(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
                        num_samples: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Softkd of all decoder levels in ONE re-pairing solve: inputs stacked
-    [L, B, ...] (aux levels, then main), box_valid / sample_valid shared
-    [B, ...] -> [L] per-level losses."""
+    [L, B, ...] (aux levels, then main; L = 1 without aux levels),
+    box_valid / sample_valid shared [B, ...] -> [L] per-level losses, each
+    the mean over valid images (``num_samples`` of them, by default the
+    batch's)."""
     L, B = noun_logits.shape[:2]
 
     def flat(x):
@@ -395,8 +377,9 @@ def loss_softkd_levels(noun_logits: torch.Tensor, sth_logits: torch.Tensor,
         flat(noun_logits), flat(sth_logits), flat(noun_boxes),
         flat(sth_boxes), flat(t2q_noun), flat(t2q_sth), tile(box_valid),
         tile(sample_valid)).reshape(L, B)
-    return (per_image * sample_valid[None, :]).sum(-1) \
-        / _num_samples(sample_valid, num_samples)
+    if num_samples is None:
+        num_samples = sample_valid.sum().clamp(min=1)
+    return (per_image * sample_valid[None, :]).sum(-1) / num_samples
 
 
 def loss_nsthl2(noun_text_memory: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Noun-pronoun distillation: the dual-model train step and the cluster eval
-step.
+"""Noun-pronoun distillation: the dual-model train step. (Its eval, the
+cluster eval, is ``train/step.make_eval_step`` given the bank.)
 
 Counterpart of ``toist_tpu/train/distill.py`` (reference engine.py:119-250
 train_one_epoch_distillation): the teacher (noun captions) forward, the
@@ -20,14 +20,12 @@ from typing import Callable, Dict, Mapping, Tuple
 import torch
 
 from toist_tpu_torch.config import Config
-from toist_tpu_torch.models.postprocess import postprocess_boxes
+from toist_tpu_torch.infer import INPUT_KEYS
 from toist_tpu_torch.train import cluster as cl
 from toist_tpu_torch.train import criterion as crit
 from toist_tpu_torch.train.state import TrainState
-from toist_tpu_torch.train.step import (EVAL_KEYS, INPUT_KEYS, TARGET_KEYS,
-                                        _scalars, accumulate_gradients,
-                                        apply_gradients, batch_to_device,
-                                        dropout_generator,
+from toist_tpu_torch.train.step import (accumulate_gradients,
+                                        apply_gradients, dropout_generator,
                                         train_batch_to_device)
 from toist_tpu_torch.utils.tracing import span, spanned
 
@@ -85,31 +83,26 @@ def distillation_losses(state: TrainState,
     num_samples = sth_b.get("num_samples_override")
     if lcfg.softkd_loss:
         with span("toist.softkd"):
-            if lcfg.aux_loss and "aux_pred_logits" in tout:
-                # Levels aux 0..n-1, then main, in one re-pairing solve.
-                n_aux = tout["aux_pred_logits"].shape[0]
+            # Levels aux 0..n-1, then main, in one re-pairing solve.
+            n_aux = (tout["aux_pred_logits"].shape[0]
+                     if lcfg.aux_loss and "aux_pred_logits" in tout else 0)
 
-                def cat(o, k):
-                    return torch.cat([o[f"aux_{k}"], o[k][None]])
+            def cat(o, k):
+                main = o[k][None]
+                return torch.cat([o[f"aux_{k}"], main]) if n_aux else main
 
-                def t2q(p):
-                    return torch.stack([losses[f"_{p}_tgt2query_{i}"]
-                                        for i in range(n_aux)]
-                                       + [losses[f"_{p}_tgt2query"]])
+            def t2q(p):
+                return torch.stack([losses[f"_{p}_tgt2query_{i}"]
+                                    for i in range(n_aux)]
+                                   + [losses[f"_{p}_tgt2query"]])
 
-                kd = crit.loss_softkd_levels(
-                    cat(tout, "pred_logits"), cat(sout, "pred_logits"),
-                    cat(tout, "pred_boxes"), cat(sout, "pred_boxes"),
-                    t2q("noun"), t2q("sth"), bv, sv, num_samples)
-                losses["loss_softkd"] = kd[-1]
-                for i in range(n_aux):
-                    losses[f"loss_softkd_{i}"] = kd[i]
-            else:
-                losses["loss_softkd"] = crit.loss_softkd(
-                    tout["pred_logits"], sout["pred_logits"],
-                    tout["pred_boxes"], sout["pred_boxes"],
-                    losses["_noun_tgt2query"], losses["_sth_tgt2query"],
-                    bv, sv, num_samples)
+            kd = crit.loss_softkd_levels(
+                cat(tout, "pred_logits"), cat(sout, "pred_logits"),
+                cat(tout, "pred_boxes"), cat(sout, "pred_boxes"),
+                t2q("noun"), t2q("sth"), bv, sv, num_samples)
+            losses["loss_softkd"] = kd[-1]
+            for i in range(n_aux):
+                losses[f"loss_softkd_{i}"] = kd[i]
     if lcfg.nsthl2_loss:
         losses["loss_nsthl2"] = crit.loss_nsthl2(
             tcache["text_memory"], scache["text_memory"],
@@ -158,42 +151,3 @@ def make_distillation_train_step(cfg: Config,
         return state, scalars
 
     return train_step
-
-
-def make_cluster_eval_step(model: torch.nn.Module, cfg: Config,
-                           weight_dict: Mapping[str, float]) -> Callable:
-    """(bank, batch) -> {"post", "scalars"}: the eval step with the
-    "something" span snapped to its cluster center between encode and
-    decode (reference engine.py:288-291, mdetr.py:282-312). The bank is
-    read only: the refreshed centers are thrown away. Under
-    ``model.masks`` it adds "pred_masks" from the unsnapped memory
-    (``toist_tpu/train/distill.py:217-220``; eval_seg_dis).
-    ``run.compute_eval_losses`` False skips the criterion."""
-    lcfg = cfg.loss
-
-    @spanned("toist.eval_step")
-    @torch.inference_mode()
-    def eval_step(bank: cl.ClusterBank, batch):
-        model.eval()
-        device = next(model.parameters()).device
-        keys = EVAL_KEYS + ("caption_noun_span", "task_id") + (
-            TARGET_KEYS if cfg.run.compute_eval_losses else ("sample_valid",))
-        x = batch_to_device(batch, device, keys)
-        cache = model.encode(*(x[k] for k in INPUT_KEYS))
-        _, cache["img_memory_mod"], _ = cl.student_cluster(
-            bank, cache, x, lcfg.kmeans_max_iters, lcfg.kmeans_tol,
-            train=False)
-        out = model.decode(cache, use_modified_memory=True)
-        scalars = {}
-        if cfg.run.compute_eval_losses:
-            losses = crit.set_criterion(out, x, lcfg)
-            losses["loss"] = crit.total_loss(losses, weight_dict)
-            scalars = _scalars(losses)
-        post = postprocess_boxes(out["pred_logits"], out["pred_boxes"],
-                                 x["orig_size"])
-        result = {"post": post, "scalars": scalars}
-        if cfg.model.masks:
-            result["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
-        return result
-
-    return eval_step

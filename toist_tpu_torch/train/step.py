@@ -13,7 +13,9 @@ head runs on the matched queries and adds the focal and dice losses; under
 ``model.frozen_detector`` the detector's forward builds no autograd graph,
 so only the mask branch has a backward. Scalars stay on the device: reading
 them is the caller's host sync. The distillation step (``train/distill.py``)
-shares ``accumulate_gradients`` and ``apply_gradients``.
+shares ``accumulate_gradients`` and ``apply_gradients``. The eval step
+is the inference forward (``infer.py``) with the eval losses between it
+and the postprocess.
 
 Across ranks (``utils/dist.init_distributed``) each rank steps on its slice
 of the global batch: the losses' denominators are the global batch's (one
@@ -27,14 +29,12 @@ whole replica (``tp.clip_grad_norm_``).
 """
 from __future__ import annotations
 
-from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
-                    Tuple)
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 
+from toist_tpu_torch import infer
 from toist_tpu_torch.config import Config
-from toist_tpu_torch.models.postprocess import postprocess_boxes
 from toist_tpu_torch.parallel import data as dp
 from toist_tpu_torch.parallel import tp
 from toist_tpu_torch.train import cluster as cl
@@ -44,29 +44,11 @@ from toist_tpu_torch.train.state import TrainState, model_masters
 from toist_tpu_torch.utils import dist
 from toist_tpu_torch.utils.tracing import span, spanned
 
-INPUT_KEYS = ("images", "image_mask", "text_ids", "text_mask")
 TARGET_KEYS = ("boxes", "positive_map", "box_valid", "sample_valid")
 # What the cluster bank and the distillation losses read besides.
 CLUSTER_KEYS = ("noun_token_spans", "caption_noun_span", "task_id")
 MASK_KEYS = ("gt_masks",)
-EVAL_KEYS = INPUT_KEYS + ("orig_size",)
-TRAIN_KEYS = INPUT_KEYS + TARGET_KEYS
-
-
-@spanned("toist.h2d")
-def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device,
-                    keys: Sequence[str] = EVAL_KEYS
-                    ) -> Dict[str, torch.Tensor]:
-    """``keys`` of a batcher ``Batch`` (numpy) as tensors on ``device``;
-    copies to a CUDA device go from pinned memory, asynchronously."""
-    device = torch.device(device)
-    out = {}
-    for k in keys:
-        t = torch.from_numpy(np.ascontiguousarray(batch[k]))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t.to(device)
-    return out
+TRAIN_KEYS = infer.INPUT_KEYS + TARGET_KEYS
 
 
 def train_batch_to_device(batch, device: torch.device
@@ -78,7 +60,7 @@ def train_batch_to_device(batch, device: torch.device
         return {k: train_batch_to_device(b, device) for k, b in batch.items()}
     if all(isinstance(batch[k], torch.Tensor) for k in TRAIN_KEYS):
         return dict(batch)
-    return batch_to_device(batch, device, [
+    return infer.batch_to_device(batch, device, [
         k for k in TRAIN_KEYS + CLUSTER_KEYS + MASK_KEYS if k in batch])
 
 
@@ -115,7 +97,7 @@ def forward_losses(model: torch.nn.Module, batch: Mapping[str, torch.Tensor],
     Under ``model.frozen_detector`` the detector's forward runs without
     autograd: the counterpart of ``stop_frozen_gradients``, and no
     attention backward."""
-    args = [batch[k] for k in INPUT_KEYS]
+    args = [batch[k] for k in infer.INPUT_KEYS]
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not cfg.model.frozen_detector):
         if bank is None:
@@ -272,52 +254,31 @@ def make_train_step(cfg: Config, weight_dict: Mapping[str, float]
     return train_step
 
 
-@torch.inference_mode()
-def eval_forward(model: torch.nn.Module, batch: Mapping[str, np.ndarray],
-                 unimodal: Optional[Callable] = None
-                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """Forward + postprocess of one batch -> (model outputs, postprocessed
-    scores/labels/boxes). A model with a mask head adds "pred_masks"
-    [B, Q, H/4, W/4] to the outputs. ``unimodal`` goes to
-    ``TOIST.encode``."""
-    device = next(model.parameters()).device
-    x = batch_to_device(batch, device)
-    out, cache = model(x["images"], x["image_mask"], x["text_ids"],
-                       x["text_mask"], unimodal=unimodal)
-    if model.cfg.masks:
-        out["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
-    post = postprocess_boxes(out["pred_logits"], out["pred_boxes"],
-                             x["orig_size"])
-    return out, post
-
-
 def make_eval_step(model: torch.nn.Module, cfg: Config,
                    weight_dict: Mapping[str, float]) -> Callable:
-    """batch -> {"post": postprocessed detections, "scalars": eval losses},
-    and with ``model.masks`` "pred_masks", every query's stride-4 logits.
+    """(batch, bank=None) -> {"post": postprocessed detections, "scalars":
+    eval losses}, and with a mask head "pred_masks", every query's stride-4
+    logits. With a cluster ``bank`` it is the cluster eval: the "something"
+    span snapped to its center, the bank read only (``infer.forward``).
     ``run.compute_eval_losses`` False skips the criterion and its matching
     (scalars {}); predictions are the same either way."""
 
     @spanned("toist.eval_step")
     @torch.inference_mode()
-    def eval_step(batch):
+    def eval_step(batch, bank: Optional[cl.ClusterBank] = None):
         model.eval()
-        device = next(model.parameters()).device
-        keys = EVAL_KEYS + (TARGET_KEYS if cfg.run.compute_eval_losses
-                            else ())
-        x = batch_to_device(batch, device, keys)
-        out, cache = model(x["images"], x["image_mask"], x["text_ids"],
-                           x["text_mask"])
+        keys = infer.EVAL_KEYS + (TARGET_KEYS if cfg.run.compute_eval_losses
+                                  else ())
+        out, x = infer.forward(model, batch, keys, bank=bank, kmeans=(
+            cfg.loss.kmeans_max_iters, cfg.loss.kmeans_tol))
         scalars = {}
         if cfg.run.compute_eval_losses:
             losses = crit.set_criterion(out, x, cfg.loss)
             losses["loss"] = crit.total_loss(losses, weight_dict)
             scalars = _scalars(losses)
-        post = postprocess_boxes(out["pred_logits"], out["pred_boxes"],
-                                 x["orig_size"])
-        result = {"post": post, "scalars": scalars}
-        if cfg.model.masks:
-            result["pred_masks"] = model.compute_masks(cache, out["hs"][-1])
+        result = {"post": infer.postprocess(out, x), "scalars": scalars}
+        if "pred_masks" in out:
+            result["pred_masks"] = out["pred_masks"]
         return result
 
     return eval_step

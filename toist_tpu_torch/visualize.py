@@ -99,13 +99,13 @@ def visualize(cfg: Config, out_dir: str, score_threshold: float = 0.95,
     written."""
     from PIL import Image
 
+    from toist_tpu_torch import infer
     from toist_tpu_torch.data.batcher import BatchIterator
     from toist_tpu_torch.data.captions import build_tokenizer
     from toist_tpu_torch.data.cocotasks import build_task_dataset
     from toist_tpu_torch.main import build_specs
     from toist_tpu_torch.models.postprocess import postprocess_masks_host
     from toist_tpu_torch.ops import rle as rle_ops
-    from toist_tpu_torch.train.step import eval_forward
 
     os.makedirs(out_dir, exist_ok=True)
     tokenizer = build_tokenizer(cfg)
@@ -117,7 +117,8 @@ def visualize(cfg: Config, out_dir: str, score_threshold: float = 0.95,
                                 masks=cfg.model.masks)
         it = BatchIterator([ds], spec, batch_size=1, shuffle=False)
         for batch in it.epoch(0):
-            out, post = eval_forward(model, batch)
+            out, x = infer.forward(model, batch)
+            post = infer.postprocess(out, x)
             if not batch["sample_valid"][0]:
                 continue
             image_id = int(batch["image_id"][0])
